@@ -7,21 +7,36 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 Phases, each of which stops the run on failure (no fallback to the CPU or
 to a plain version):
 
-1. build   — ``nvcc`` builds ``src/repro_torch/kernels/csrc/*.cu`` into
-             ``build/kernels/`` while the Triton kernels compile;
+1. build   — ``nvcc`` builds ``src/repro_torch/kernels/csrc/*.cu`` (the
+             chase, flash-attention and WKV6 sources, one compiler each, all
+             at once) into ``build/kernels/`` while the Triton kernels
+             compile;
 2. kernels — each probe kernel, at the shapes discovery gives it, against
              its plain PyTorch version on the card (bit-exact for the chase,
              eviction and write kernels; rtol 1e-5 for the read kernel,
              whose summation order differs), with CUDA-event times;
 3. discover — ``discover_cuda()`` with its defaults on the card, its
              discrete attributes held to ``make_cuda_model().ground_truth()``
-             and every kernel's launch count, read around this phase alone,
-             above zero.
+             and every probe kernel's launch count, read around this phase
+             alone, above zero;
+4. llm kernels — ``ops.mha``, ``ops.wkv6`` and ``ops.pchase`` at the
+             shapes the serve phase gives them, against their plain
+             versions (tolerances at each check), with CUDA-event times,
+             bounds and, for attention, ``scaled_dot_product_attention`` as
+             the library yardstick;
+5. serve   — ``repro_torch.launch.serve.main`` at full width and depth in
+             bfloat16 for qwen3-14b, then rwkv6-3b (8 requests of 512
+             tokens, 16 new tokens each, 4 slots): the launch counts read
+             around each call alone (one ``mha`` or ``wkv6`` per layer and
+             wave), 16 tokens a request, finite logits, equal greedy tokens
+             from a second run of one wave; then the smoke configs on the
+             card against the same weights on the CPU.
 
 The last two lines of standard output are the kernels summary and the
 device line, each one JSON object.  Exits non-zero without them when there
 is no CUDA device or the port's sources are missing.
 """
+import gc
 import json
 import os
 import statistics
@@ -38,6 +53,7 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12           # H100 SXM scalar float32 rate (data sheet)
+BF16_OPS_PER_S = 989e12          # H100 SXM dense bf16 tensor rate (data sheet)
 STEPS = 6144                     # CudaRunner's default base_steps
 BW_BYTES = 1 << 21               # CudaRunner's default bandwidth_bytes
 BLOCK = 64 * 1024                # the stream probe's block
@@ -69,11 +85,13 @@ def event_ms(fn, reps: int = REPS) -> float:
     return statistics.median(times)
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, ops: float,
+             ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
     """The least time for the work: bytes over the memory rate or
-    operations over the scalar f32 rate, whichever is larger."""
+    operations over the peak rate of the inputs' type (scalar f32 unless
+    given), whichever is larger."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -304,6 +322,271 @@ def phase_discover() -> dict:
 
 
 # --------------------------------------------------------------------------
+# Phase 4: the model kernels and the single-chain chase
+# --------------------------------------------------------------------------
+# The serve phase's shapes: a wave of 4 prompts of 512 tokens; qwen3-14b's
+# 40 query and 8 kv heads of 128, rwkv6-3b's 40 heads of 64.
+ATTN = dict(b=4, hq=40, hkv=8, s=512, d=128)
+WKV = dict(b=4, t=512, h=40, k=64, chunk=32)
+# bf16 attention: both versions accumulate in f32 and round once to bf16,
+# one ulp of which is at most 2**-6 of the value: rtol = atol = 1.6e-2.
+# f32 attention: the online and the dense softmax sum in other orders.
+ATTN_TOL = {torch.bfloat16: 1.6e-2, torch.float32: 2e-5}
+# WKV6 in f32: 64-term dot products and 32-step chunk sums in other
+# orders; errors scale with the largest output.
+WKV_RTOL = 1e-4
+
+
+def _attn_work(b, hq, hkv, s, d, elem) -> tuple[int, int]:
+    """Bytes (q, k, v read once, o written once) and operations (a multiply
+    and an add for each q.k and p.v term of the causal pairs)."""
+    pairs = s * (s + 1) // 2
+    return elem * (2 * b * s * hq * d + 2 * b * s * hkv * d), \
+        4 * d * pairs * b * hq
+
+
+def _wkv_work(b, t, h, k, chunk) -> tuple[int, int]:
+    """Bytes (r, k, w, v, u read once, y and the state written once) and
+    operations per (b, h, chunk): the state read and carry (2 x 2CKV), the
+    pairwise weights (C(C-1)/2 x 4K, the exp counted as one), their product
+    with v (C(C-1)V) and the diagonal bonus (3CK + 2CV), with V = K."""
+    v = k
+    nbytes = 4 * (3 * b * t * h * k + 2 * b * t * h * v + h * k
+                  + b * h * k * v)
+    per_chunk = (4 * chunk * k * v + chunk * (chunk - 1) // 2 * 4 * k
+                 + chunk * (chunk - 1) * v + 3 * chunk * k + 2 * chunk * v)
+    return nbytes, b * h * (t // chunk) * per_chunk
+
+
+def phase_llm_kernels() -> dict:
+    import torch.nn.functional as F
+
+    from repro_torch.core.probes.runners import random_cycle
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.kernels.pchase_probe import (pchase_plain,
+                                                  pchase_reference)
+    from repro_torch.kernels.rwkv6_scan import wkv6_plain
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    rows = {}
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    b, hq, hkv, s, d = (ATTN[x] for x in ("b", "hq", "hkv", "s", "d"))
+    for dtype, seq in ((torch.bfloat16, s), (torch.float32, s),
+                       (torch.bfloat16, 500)):
+        q = randn(b, seq, hq, d, dtype=dtype)
+        k, v = (randn(b, seq, hkv, d, dtype=dtype) for _ in range(2))
+        got = ops.mha(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        want = flash_attention_plain(q, k, v, True)
+        tol = ATTN_TOL[dtype]
+        err = float((got.float() - want.float()).abs().max())
+        shape = (f"B={b},Hq={hq},Hkv={hkv},S={seq},d={d},"
+                 f"{str(dtype).split('.')[-1]},causal")
+        check(got.dtype == dtype and got.shape == q.shape,
+              f"mha {shape}: {got.dtype} {tuple(got.shape)}")
+        check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
+              f"mha {shape}: max_abs_err {err} beyond rtol=atol={tol}")
+        k_ms = event_ms(lambda: ops.mha(q, k, v, causal=True))
+        p_ms = event_ms(lambda: flash_attention_plain(q, k, v, True), reps=5)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        l_ms = event_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True))
+        nbytes, n_ops = _attn_work(b, hq, hkv, seq, d, q.element_size())
+        b_ms, b_by = bound_ms(nbytes, n_ops, BF16_OPS_PER_S
+                              if dtype == torch.bfloat16 else FP32_OPS_PER_S)
+        print(f"[llm] mha {shape}: rtol=atol={tol} ok (max_abs_err={err:g}); "
+              f"kernel_ms={k_ms:.4f} bound_ms={b_ms:.6f} ({b_by}) "
+              f"plain_ms={p_ms:.4f} library_ms={l_ms:.4f} "
+              f"(scaled_dot_product_attention)")
+        if dtype == torch.bfloat16 and seq == s:
+            rows["mha"] = dict(shape=shape, ms=k_ms, plain_ms=p_ms,
+                               bound_ms=b_ms, bound_by=b_by, library_ms=l_ms,
+                               max_abs_err=err)
+        del q, k, v, qt, kt, vt, got, want
+
+    b, h, kd, chunk = (WKV[x] for x in ("b", "h", "k", "chunk"))
+    for t in (WKV["t"], 500):
+        r, k, v = (randn(b, t, h, kd) for _ in range(3))
+        w = torch.rand((b, t, h, kd), generator=gen, device="cuda") \
+            * 0.93 + 0.05                              # decays in (0.05, 0.98)
+        u = randn(h, kd)
+        y, st = ops.wkv6(r, k, v, w, u, chunk=chunk)
+        torch.cuda.synchronize()
+        # the plain version on the wrapper's padding: r = k = v = 0, w = 1
+        extra = (0, 0, 0, 0, 0, -t % chunk)
+        padded = [F.pad(x, extra, value=1.0 if x is w else 0.0)
+                  for x in (r, k, v, w)]
+        y_p, st_p = wkv6_plain(*padded, u, chunk)
+        y_p = y_p[:, :t]
+        shape = f"B={b},T={t},H={h},K=V={kd},chunk={chunk},f32"
+        err = max(float((y - y_p).abs().max()), float((st - st_p).abs().max()))
+        for got, want, name in ((y, y_p, "y"), (st, st_p, "state")):
+            atol = WKV_RTOL * float(want.abs().max())
+            check(torch.allclose(got, want, rtol=WKV_RTOL, atol=atol),
+                  f"wkv6 {shape}: {name} max_abs_err "
+                  f"{float((got - want).abs().max())} beyond rtol {WKV_RTOL},"
+                  f" atol {atol}")
+        k_ms = event_ms(lambda: ops.wkv6(r, k, v, w, u, chunk=chunk))
+        p_ms = event_ms(lambda: wkv6_plain(*padded, u, chunk), reps=5)
+        nbytes, n_ops = _wkv_work(b, t, h, kd, chunk)
+        b_ms, b_by = bound_ms(nbytes, n_ops)
+        print(f"[llm] wkv6 {shape}: rtol {WKV_RTOL} ok (max_abs_err={err:g})"
+              f"; kernel_ms={k_ms:.4f} bound_ms={b_ms:.6f} ({b_by}) "
+              f"plain_ms={p_ms:.4f} library_ms=null")
+        if t == WKV["t"]:
+            rows["wkv6"] = dict(shape=shape, ms=k_ms, plain_ms=p_ms,
+                                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                                max_abs_err=err)
+        del r, k, v, w, u, y, st, y_p, st_p, padded
+
+    rng = np.random.default_rng(1)
+    n = 1 << 19
+    for wraps, perm in ((False, random_cycle(n, rng)),
+                        (True, _wrapping_row(n, rng))):
+        p_t = torch.from_numpy(perm).cuda()
+        got = ops.pchase(p_t, iters=STEPS)
+        torch.cuda.synchronize()
+        want = pchase_plain(p_t, STEPS)
+        ref = pchase_reference(perm, STEPS)
+        check(torch.equal(got, want) and tuple(got.tolist()) == ref,
+              f"pchase N=2^19 wraps={wraps}: {got.tolist()} vs plain "
+              f"{want.tolist()} and reference {ref}")
+        check(ref[1] < 0 or not wraps, f"pchase: the wrapping row {ref} "
+              f"did not wrap")
+        shape = f"N=2^19,iters={STEPS}" + (",wrapping" if wraps else "")
+        k_ms = event_ms(lambda: ops.pchase(p_t, iters=STEPS))
+        p_ms = event_ms(lambda: pchase_plain(p_t, STEPS), reps=5)
+        touched = _chase_touched(np.array([STEPS]), n if not wraps else 1025)
+        b_ms, b_by = bound_ms(4 * touched + 8, 2 * STEPS)
+        print(f"[llm] pchase {shape}: exact; kernel_ms={k_ms:.4f} "
+              f"per_load_ns={k_ms * 1e6 / STEPS:.2f} bound_ms={b_ms:.6f} "
+              f"({b_by}) plain_ms={p_ms:.3f} library_ms=null")
+        if not wraps:
+            rows["pchase"] = dict(shape=shape, ms=k_ms, plain_ms=p_ms,
+                                  bound_ms=b_ms, bound_by=b_by,
+                                  library_ms=None, max_abs_err=0)
+    torch.cuda.empty_cache()
+    return rows
+
+
+# --------------------------------------------------------------------------
+# Phase 5: token serving at full width
+# --------------------------------------------------------------------------
+SERVE = dict(requests=8, prompt_len=512, max_new=16, max_len=640, slots=4)
+# Smoke configs on the card against the CPU, float32 on both: the CPU runs
+# the plain versions, the card the kernels and cuBLAS in full float32; the
+# sums differ in order only.
+SMOKE_TOL = 1e-4
+
+
+def _serve_argv(arch: str) -> list[str]:
+    return ["--arch", arch, "--requests", str(SERVE["requests"]),
+            "--prompt-len", str(SERVE["prompt_len"]), "--max-new",
+            str(SERVE["max_new"]), "--max-len", str(SERVE["max_len"]),
+            "--slots", str(SERVE["slots"]), "--dtype", "bfloat16"]
+
+
+def _smoke_agreement(arch: str, overrides: dict) -> float:
+    """Prefill and two decode steps of a float32 smoke config on the card
+    and on the CPU, on the same weights; the largest logit difference."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+
+    cfg = get_config(arch).replace(dtype="float32", **overrides)
+    model = get_model(cfg)
+    cpu = model.init(seed=0, device="cpu")
+    card = {name: ([{k: t.cuda() for k, t in layer.items()}
+                    for layer in value] if name == "layers" else value.cuda())
+            for name, value in cpu.items()}
+    rng = np.random.default_rng(2)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 100)))
+    steps = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 2, 1)))
+    worst = 0.0
+    with torch.no_grad():
+        outs = {}
+        for dev, params in (("cpu", cpu), ("cuda", card)):
+            logits, cache = model.prefill(params, {"tokens": prompt.to(dev)},
+                                          128)
+            seq = [logits.cpu()]
+            for tok in steps:
+                logits, cache = model.decode_step(
+                    params, {"tokens": tok.to(dev)}, cache)
+                seq.append(logits.cpu())
+            outs[dev] = seq
+    for a, b in zip(outs["cpu"], outs["cuda"]):
+        worst = max(worst, float((a - b).abs().max()))
+        check(torch.allclose(b, a, rtol=SMOKE_TOL, atol=SMOKE_TOL),
+              f"{arch}: card logits differ from the CPU's by "
+              f"{float((a - b).abs().max())}")
+    return worst
+
+
+def phase_serve() -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    torch.backends.cuda.matmul.allow_tf32 = False    # full f32 (smoke check)
+    waves = -(-SERVE["requests"] // SERVE["slots"])
+    launches = {}
+    for arch, kernel in (("qwen3-14b", "mha"), ("rwkv6-3b", "wkv6")):
+        cfg = get_config(arch)
+        ops.reset_launches()
+        res = serve.main(_serve_argv(arch))
+        counts = {fn.__name__: fn.launches for fn in ops.LLM_WRAPPERS}
+        want = {"mha": 0, "wkv6": 0, "pchase": 0,
+                kernel: cfg.n_layers * waves}
+        check(counts == want == res["launches"],
+              f"{arch}: launches {counts} (reported {res['launches']}), "
+              f"expected {want}")
+        launches[kernel] = counts[kernel]
+        check(all(o.shape == (SERVE["max_new"],) for o in res["outputs"]),
+              f"{arch}: not {SERVE['max_new']} tokens for every request")
+        eng = res["engine"]
+        n_params = sum(t.numel() for name, t in eng.params.items()
+                       if name != "layers") + sum(
+            t.numel() for layer in eng.params["layers"]
+            for t in layer.values())
+        print(f"[serve] {arch}: {n_params / 1e9:.2f} B parameters in "
+              f"bfloat16; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; "
+              f"wall {res['wall_s']:.3f}s, {res['tok_per_s']:.1f} tok/s, "
+              f"prefill {res['prefill_s']:.3f}s ({eng.stats['prefills']} "
+              f"waves), decode {res['decode_s']:.3f}s "
+              f"({eng.stats['decode_steps']} steps); launches {counts}")
+        prompts = np.stack(res["requests"][:SERVE["slots"]])
+        again = eng.generate_batch(prompts, SERVE["max_new"])
+        check(np.array_equal(again, np.stack(res["outputs"][:SERVE["slots"]])),
+              f"{arch}: a second run of the first wave gave other tokens")
+        with torch.no_grad():
+            logits, _ = eng.model.prefill(
+                eng.params, {"tokens": torch.as_tensor(
+                    prompts, dtype=torch.long, device="cuda")},
+                SERVE["max_len"])
+        check(tuple(logits.shape) == (SERVE["slots"], cfg.vocab_size)
+              and bool(torch.isfinite(logits).all()),
+              f"{arch}: logits {tuple(logits.shape)} not finite or misshapen")
+        print(f"[serve] {arch}: greedy tokens of a second run of the first "
+              f"wave equal; logits finite")
+        del res, eng, logits
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    for arch, overrides in (("qwen3-14b-smoke", dict(n_heads=6,
+                                                      n_kv_heads=2)),
+                            ("rwkv6-3b-smoke", {})):
+        err = _smoke_agreement(arch, overrides)
+        print(f"[serve] {arch} float32 on the card vs the CPU: logits within "
+              f"rtol=atol={SMOKE_TOL} (max_abs_err={err:g})")
+    return launches
+
+
+# --------------------------------------------------------------------------
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -319,6 +602,9 @@ def main() -> int:
     phase_build()
     rows = phase_kernels(np.random.default_rng(0))
     launches = phase_discover()
+    rows.update(phase_llm_kernels())
+    launches.update(phase_serve())
+    launches["pchase"] = 0              # ops.pchase is on no path
     print(f"[smoke] all phases passed in {time.perf_counter() - t0:.1f}s")
 
     replaces = {
@@ -326,6 +612,9 @@ def main() -> int:
         "eviction_batch": "src/repro/kernels/pchase_probe.py:138",
         "stream_read": "src/repro/kernels/stream_probe.py:36",
         "stream_write": "src/repro/kernels/stream_probe.py:53",
+        "pchase": "src/repro/kernels/pchase_probe.py:53",
+        "mha": "src/repro/kernels/flash_attention.py:78",
+        "wkv6": "src/repro/kernels/rwkv6_scan.py:74",
     }
     sources = {
         "pchase_batch": ("cuda", "src/repro_torch/kernels/csrc/pchase.cu"),
@@ -333,7 +622,12 @@ def main() -> int:
         "stream_read": ("triton", "src/repro_torch/kernels/stream_probe.py"),
         "stream_write": ("triton",
                          "src/repro_torch/kernels/stream_probe.py"),
+        "pchase": ("cuda", "src/repro_torch/kernels/csrc/pchase.cu"),
+        "mha": ("cuda", "src/repro_torch/kernels/csrc/flash_attention.cu"),
+        "wkv6": ("cuda", "src/repro_torch/kernels/csrc/wkv6.cu"),
     }
+    paths = {"mha": "serve qwen3-14b", "wkv6": "serve rwkv6-3b",
+             "pchase": None}
     kernels = []
     for name, row in rows.items():
         route, source = sources[name]
@@ -343,7 +637,8 @@ def main() -> int:
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            "shape": row["shape"], "ok": True,
+            "shape": row["shape"], "path": paths.get(name, "discover_cuda"),
+            "ok": True,
         })
     print(smi)
     print(json.dumps({"kernels": kernels}))

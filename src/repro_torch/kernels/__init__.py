@@ -1,8 +1,9 @@
-"""Probe kernels written by hand for NVIDIA Hopper, with their wrappers.
+"""Kernels written by hand for NVIDIA Hopper, with their wrappers.
 
-``pchase_probe`` (CUDA C++ in ``csrc/``, built by ``_build``) and
-``stream_probe`` (Triton) hold the kernels and their plain PyTorch
-versions; ``ops`` holds the checked, counted wrappers the runner calls.
+``pchase_probe``, ``flash_attention`` and ``rwkv6_scan`` (CUDA C++ in
+``csrc/``, built by ``_build``) and ``stream_probe`` (Triton) hold the
+kernels and their plain PyTorch versions; ``ops`` holds the checked,
+counted wrappers the runner and the models call.
 """
 from . import ops
 

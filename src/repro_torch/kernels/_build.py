@@ -1,34 +1,38 @@
-"""Build and load the CUDA C++ probe kernels.
+"""Build and load the CUDA C++ kernels.
 
-``kernels/csrc/*.cu`` compile with ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface, which is loaded with ``ctypes``.  The build
-runs at first use, never at import, and lands in ``build/kernels/`` at the
-root of the checkout under a name keyed by a hash of the sources and flags,
-so an edited source builds anew and an unchanged one is loaded as it is.
+``kernels/csrc/*.cu`` compile with ``nvcc`` for ``sm_90a``, one compiler
+process per source, all started together, and link into one shared library
+with a plain C interface, which is loaded with ``ctypes``.  The build runs
+at first use, never at import, and lands in ``build/kernels/`` at the root
+of the checkout under a name keyed by a hash of the sources and flags, so
+an edited source builds anew and an unchanged one is loaded as it is.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import shutil
 import subprocess
 import threading
 import time
 from dataclasses import dataclass
 from pathlib import Path
 
-__all__ = ["BuildInfo", "load_library"]
+__all__ = ["BuildInfo", "load_library", "check_launch"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signature of each entry point: (argtypes, restype).
 _SIGNATURES = {
     "pchase_batch": ((_P, _P, _P, _I, _I, _P), _I),
     "eviction_batch": ((_P, _P, _P, _P, _P, _I, _I, _I, _P), _I),
+    "flash_attention_fwd": ((_P,) * 4 + (_I,) * 8 + (_P,), _I),
+    "wkv6_fwd": ((_P,) * 7 + (_I,) * 6 + (_P,), _I),
     "probe_error_string": ((_I,), ctypes.c_char_p),
 }
 
@@ -61,24 +65,48 @@ def _build() -> BuildInfo:
     for src in sources:
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
-    lib = BUILD_DIR / f"libprobe_kernels_{digest.hexdigest()[:16]}.so"
+    lib = BUILD_DIR / f"libport_kernels_{digest.hexdigest()[:16]}.so"
     if lib.exists():
         return BuildInfo(lib, 0.0, "")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-    os.replace(tmp, lib)          # atomic: a concurrent build loses nothing
+    nvcc = _nvcc()
+    work = BUILD_DIR / f"{lib.stem}.{os.getpid()}"
+    work.mkdir(parents=True, exist_ok=True)
+    try:
+        t0 = time.perf_counter()
+        jobs = []
+        for src in sources:
+            obj = work / f"{src.stem}.o"
+            log_file = open(work / f"{src.stem}.log", "w+")
+            jobs.append((src, obj, log_file, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=log_file, stderr=subprocess.STDOUT)))
+        logs, failed = [], []
+        for src, _, log_file, proc in jobs:
+            code = proc.wait()
+            with log_file:
+                log_file.seek(0)
+                logs.append(f"== {src.name}\n{log_file.read()}")
+            if code != 0:
+                failed.append(f"{src.name} ({code})")
+        log = "".join(logs)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n{log}")
+        tmp = work / lib.name
+        proc = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                               *(str(obj) for _, obj, _, _ in jobs)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, lib)      # atomic: a concurrent build loses nothing
+        seconds = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return BuildInfo(lib, seconds, log)
 
 
 def load_library() -> tuple[ctypes.CDLL, BuildInfo]:
-    """The probe-kernel library, built on first use; thread-safe."""
+    """The kernel library, built on first use; thread-safe."""
     global _loaded
     with _lock:
         if _loaded is None:
@@ -89,3 +117,10 @@ def load_library() -> tuple[ctypes.CDLL, BuildInfo]:
                 fn.argtypes, fn.restype = argtypes, restype
             _loaded = (lib, info)
         return _loaded
+
+
+def check_launch(lib: ctypes.CDLL, name: str, err: int) -> None:
+    """Raise if the C entry point ``name`` returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
+                           f"{err} ({lib.probe_error_string(err).decode()})")

@@ -1,34 +1,42 @@
-"""Public wrappers around the probe kernels.
+"""Public wrappers around the hand-written kernels.
 
 Each wrapper checks device, dtype, shape and contiguity, then runs the
 hand-written kernel for a CUDA tensor and the kernel's plain PyTorch
 version for a CPU tensor (the tests' path); there is no fallback between
 the two.  Each carries a plain integer ``launches`` count, one per call,
 which shows that a run went through the wrapper; ``reset_launches`` zeroes
-all four.
+them all.  ``WRAPPERS`` are the four probe wrappers discovery runs;
+``LLM_WRAPPERS`` are the model kernels' (``mha``, ``wkv6``) and the
+single-chain chase (``pchase``), which no discovery path calls.
 """
 from __future__ import annotations
 
 import functools
 
 import torch
+import torch.nn.functional as F
 
+from .flash_attention import (BLOCK, HEAD_DIMS, flash_attention_kernel,
+                              flash_attention_plain)
 from .pchase_probe import (eviction_batch_plain, eviction_kernel_batch,
-                           pchase_batch_plain, pchase_kernel_batch)
+                           pchase_batch_plain, pchase_kernel,
+                           pchase_kernel_batch, pchase_plain)
+from .rwkv6_scan import wkv6_kernel, wkv6_plain
 from .stream_probe import (stream_read_kernel, stream_read_plain,
                            stream_write_kernel, stream_write_plain)
 
 __all__ = ["pchase_batch", "eviction_batch", "stream_read", "stream_write",
-           "WRAPPERS", "reset_launches"]
+           "mha", "wkv6", "pchase", "WRAPPERS", "LLM_WRAPPERS",
+           "reset_launches"]
 
 _INT_MAX = 2**31 - 1
 
 
-def _check(name: str, t, dtype: torch.dtype, ndim: int,
-           device: torch.device) -> None:
+def _check(name: str, t, dtype, ndim: int, device: torch.device) -> None:
+    """``dtype`` is one torch.dtype or a tuple of those allowed."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name}: expected a torch.Tensor, got {type(t)!r}")
-    if t.dtype != dtype:
+    if t.dtype not in (dtype if isinstance(dtype, tuple) else (dtype,)):
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{name}: expected {ndim}-D, got shape "
@@ -58,7 +66,7 @@ def _route(device: torch.device, kernel, plain):
         return kernel
     if device.type == "cpu":
         return plain
-    raise ValueError(f"no probe kernel for device type {device.type!r}")
+    raise ValueError(f"no kernel for device type {device.type!r}")
 
 
 @_counted
@@ -111,10 +119,104 @@ def stream_write(x: torch.Tensor) -> torch.Tensor:
     return fn(x)
 
 
+def _pad_seq(x: torch.Tensor, length: int, value: float = 0.0):
+    """Pad dim 1 of a (B, S, ...) tensor with ``value`` up to ``length``."""
+    extra = length - x.shape[1]
+    if extra == 0:
+        return x
+    return F.pad(x, (0, 0) * (x.dim() - 2) + (0, extra), value=value)
+
+
+@_counted
+def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+        causal: bool = True) -> torch.Tensor:
+    """Flash attention over model-layout activations: q (B, Sq, Hq, d),
+    k and v (B, Sk, Hkv, d), float32 or bfloat16 -> (B, Sq, Hq, d) in q's
+    dtype.
+
+    The kernel takes sequence lengths in multiples of ``BLOCK``.  A ragged
+    causal call with Sq <= Sk is padded at the tail and the padded rows
+    dropped: every padded key lies after every real query, so the causal
+    mask hides it and the result is exact.  A ragged non-causal call would
+    attend to the padding, so it raises.
+    """
+    dev = q.device
+    _check("q", q, (torch.float32, torch.bfloat16), 4, dev)
+    _check("k", k, q.dtype, 4, dev)
+    _check("v", v, q.dtype, 4, dev)
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    if v.shape != k.shape or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} do not "
+                         f"match q {tuple(q.shape)}")
+    if hkv == 0 or hq % hkv:
+        raise ValueError(f"{hq} query heads are not a multiple of {hkv} kv "
+                         f"heads")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    ragged = sq % BLOCK or sk % BLOCK
+    if ragged and not (causal and sq <= sk):
+        raise ValueError(f"lengths {sq}, {sk} are not multiples of {BLOCK}; "
+                         f"only causal attention with Sq <= Sk is padded")
+    fn = _route(dev, flash_attention_kernel, flash_attention_plain)
+    if not ragged:
+        return fn(q, k, v, causal)
+    pq, pk = -(-sq // BLOCK) * BLOCK, -(-sk // BLOCK) * BLOCK
+    out = fn(_pad_seq(q, pq), _pad_seq(k, pk), _pad_seq(v, pk), causal)
+    return out[:, :sq]
+
+
+@_counted
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+         u: torch.Tensor, *,
+         chunk: int = 32) -> tuple[torch.Tensor, torch.Tensor]:
+    """Chunked WKV6 from a zero state over model-layout float32 activations:
+    r, k, w (B, T, H, K), v (B, T, H, V), u (H, K) -> (y (B, T, H, V),
+    state (B, H, K, V)), both float32.
+
+    A ragged tail is padded up to ``chunk`` with r = k = v = 0 and w = 1: a
+    padded step adds k v^T = 0 to the state and decays it by 1, so the real
+    positions' y and the final state are exact.  There is no incoming
+    state: the kernel starts from zero, as prefill does.
+    """
+    dev = r.device
+    _check("r", r, torch.float32, 4, dev)
+    for name, t in (("k", k), ("w", w), ("v", v)):
+        _check(name, t, torch.float32, 4, dev)
+    _check("u", u, torch.float32, 2, dev)
+    b, t, h, kd = r.shape
+    if k.shape != r.shape or w.shape != r.shape or v.shape[:3] != (b, t, h) \
+            or tuple(u.shape) != (h, kd):
+        raise ValueError(f"shapes r {tuple(r.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}, w {tuple(w.shape)}, "
+                         f"u {tuple(u.shape)} do not match")
+    if chunk <= 0:
+        raise ValueError(f"chunk must be positive, got {chunk}")
+    fn = _route(dev, wkv6_kernel, wkv6_plain)
+    if t % chunk == 0:
+        return fn(r, k, v, w, u, chunk)
+    tp = -(-t // chunk) * chunk
+    y, state = fn(_pad_seq(r, tp), _pad_seq(k, tp), _pad_seq(v, tp),
+                  _pad_seq(w, tp, 1.0), u, chunk)
+    return y[:, :t], state
+
+
+@_counted
+def pchase(perm: torch.Tensor, *, iters: int) -> torch.Tensor:
+    """Single-chain p-chase: perm (N,) int32 single-cycle permutation ->
+    (2,) int32 ``[final_cursor, checksum]`` after ``iters`` loads."""
+    _check("perm", perm, torch.int32, 1, perm.device)
+    if not 0 <= iters <= _INT_MAX:
+        raise ValueError(f"iters {iters} outside [0, 2**31)")
+    fn = _route(perm.device, pchase_kernel, pchase_plain)
+    return fn(perm, iters)
+
+
 WRAPPERS = (pchase_batch, eviction_batch, stream_read, stream_write)
+LLM_WRAPPERS = (mha, wkv6, pchase)
 
 
 def reset_launches() -> None:
     """Zero every wrapper's ``launches`` count."""
-    for fn in WRAPPERS:
+    for fn in WRAPPERS + LLM_WRAPPERS:
         fn.launches = 0

@@ -11,6 +11,10 @@ kernel.  The *caller* times the whole call; each row returns its final
 cursor and a visit checksum, so the chain cannot be dead-code-eliminated,
 and both are the correctness contract checked against the references.
 
+``pchase_kernel`` is the single-chain entry point (the reference's
+``pchase_kernel``, ``pchase_probe.py:53``): one row of the same CUDA grid
+kernel, with the chain length ``iters`` as that row's step count.
+
 ``eviction_kernel_batch`` extends the same trick to the eviction-pattern
 probes (paper §IV-F/§IV-G/§IV-H, Fig. 3): each row first walks an *evictor*
 chain (warm phase over buffer B) and then a *probe* chain (buffer A), both
@@ -25,17 +29,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ._build import load_library
+from ._build import check_launch, load_library
 
-__all__ = ["pchase_kernel_batch", "eviction_kernel_batch",
-           "pchase_batch_plain", "eviction_batch_plain",
+__all__ = ["pchase_kernel", "pchase_kernel_batch", "eviction_kernel_batch",
+           "pchase_plain", "pchase_batch_plain", "eviction_batch_plain",
            "pchase_reference", "eviction_reference"]
-
-
-def _check_launch(lib, name: str, err: int) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
-                           f"{err} ({lib.probe_error_string(err).decode()})")
 
 
 def pchase_kernel_batch(perms: torch.Tensor,
@@ -46,9 +44,16 @@ def pchase_kernel_batch(perms: torch.Tensor,
     rows, n = perms.shape
     out = torch.empty((rows, 2), dtype=torch.int32, device=perms.device)
     stream = torch.cuda.current_stream(perms.device).cuda_stream
-    _check_launch(lib, "pchase_batch", lib.pchase_batch(
+    check_launch(lib, "pchase_batch", lib.pchase_batch(
         perms.data_ptr(), steps.data_ptr(), out.data_ptr(), rows, n, stream))
     return out
+
+
+def pchase_kernel(perm: torch.Tensor, iters: int) -> torch.Tensor:
+    """CUDA single-row p-chase: perm (N,) -> (2,) int32
+    ``[final_cursor, checksum]`` after ``iters`` loads from slot 0."""
+    steps = torch.full((1,), iters, dtype=torch.int32, device=perm.device)
+    return pchase_kernel_batch(perm.view(1, -1), steps)[0]
 
 
 def eviction_kernel_batch(perms: torch.Tensor, evictors: torch.Tensor,
@@ -62,7 +67,7 @@ def eviction_kernel_batch(perms: torch.Tensor, evictors: torch.Tensor,
     m = evictors.shape[1]
     out = torch.empty((rows, 2), dtype=torch.int32, device=perms.device)
     stream = torch.cuda.current_stream(perms.device).cuda_stream
-    _check_launch(lib, "eviction_batch", lib.eviction_batch(
+    check_launch(lib, "eviction_batch", lib.eviction_batch(
         perms.data_ptr(), evictors.data_ptr(), warm.data_ptr(),
         probe.data_ptr(), out.data_ptr(), rows, n, m, stream))
     return out
@@ -124,6 +129,12 @@ def pchase_batch_plain(perms: torch.Tensor,
     """Plain version of ``pchase_kernel_batch`` (same contract)."""
     zero = torch.zeros(perms.shape[0], dtype=torch.int64, device=perms.device)
     return _wrap_rows(*_walk(perms, steps, zero))
+
+
+def pchase_plain(perm: torch.Tensor, iters: int) -> torch.Tensor:
+    """Plain version of ``pchase_kernel`` (same contract)."""
+    steps = torch.full((1,), iters, dtype=torch.int32, device=perm.device)
+    return pchase_batch_plain(perm.view(1, -1), steps)[0]
 
 
 def eviction_batch_plain(perms: torch.Tensor, evictors: torch.Tensor,

@@ -1,0 +1,94 @@
+"""Serving launcher: initialise a model from a seed, serve a synthetic request
+stream through the engine, report what it took.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \
+        --requests 8 --prompt-len 512 --max-new 16 --max-len 640
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch qwen3-14b-smoke --device cpu
+
+The port of ``repro.launch.serve`` on one card: ``--mesh`` takes only
+``1x1`` (``sharding/`` is not ported) and ``--ckpt-dir`` raises
+(``checkpoint/`` is not ported).  ``main`` returns its numbers as well as
+printing the ``[serve]`` line.
+"""
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from ..configs import get_config
+from ..kernels import ops
+from ..models import get_model
+from ..models.common import DTYPES
+from ..serve import Engine, ServeConfig
+
+__all__ = ["main"]
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def main(argv=None) -> dict:
+    """Serve and return ``{"arch", "device", "requests", "new_tokens",
+    "wall_s", "tok_per_s", "prefill_s", "decode_s", "launches", "outputs",
+    "engine"}``; ``launches`` counts each model-kernel wrapper's calls
+    during the serve."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="internlm2-1.8b-smoke")
+    ap.add_argument("--mesh", default="1x1")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=8)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--max-len", type=int, default=64)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="restore params from a training checkpoint")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--dtype", choices=sorted(DTYPES), default=None,
+                    help="parameter dtype (default: float32 for -smoke "
+                         "configs, else the config's)")
+    args = ap.parse_args(argv)
+    if args.mesh != "1x1":
+        raise NotImplementedError(f"--mesh {args.mesh}: sharding/ is not "
+                                  f"ported; the port serves on one card "
+                                  f"(1x1)")
+    if args.ckpt_dir:
+        raise NotImplementedError("--ckpt-dir: checkpoint/ is not ported")
+
+    cfg = get_config(args.arch)
+    default = "float32" if cfg.name.endswith("-smoke") else cfg.dtype
+    cfg = cfg.replace(dtype=args.dtype or default)
+    model = get_model(cfg)
+    params = model.init(seed=0, device=args.device)
+    eng = Engine(model, params, ServeConfig(
+        max_len=args.max_len, slots=args.slots, device=args.device))
+    rng = np.random.default_rng(0)
+    reqs = [rng.integers(0, cfg.vocab_size, args.prompt_len).astype(np.int32)
+            for _ in range(args.requests)]
+
+    before = {fn.__name__: fn.launches for fn in ops.LLM_WRAPPERS}
+    _sync(eng.device)
+    t0 = time.perf_counter()
+    outs = eng.serve(reqs, max_new=args.max_new)
+    _sync(eng.device)
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches - before[fn.__name__]
+                for fn in ops.LLM_WRAPPERS}
+    toks = sum(o.size for o in outs)
+    print(f"[serve] arch={cfg.name} mesh={args.mesh} device={eng.device} "
+          f"dtype={cfg.dtype} requests={len(reqs)} new_tokens={toks} "
+          f"wall={wall:.2f}s throughput={toks / wall:.1f} tok/s "
+          f"prefill={eng.stats['prefill_s']:.3f}s "
+          f"decode={eng.stats['decode_s']:.3f}s launches={launches}")
+    return {"arch": cfg.name, "device": str(eng.device),
+            "requests": reqs, "new_tokens": toks, "wall_s": wall,
+            "tok_per_s": toks / wall, "prefill_s": eng.stats["prefill_s"],
+            "decode_s": eng.stats["decode_s"], "launches": launches,
+            "outputs": outs, "engine": eng}
+
+
+if __name__ == "__main__":
+    main()

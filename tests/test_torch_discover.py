@@ -5,23 +5,23 @@
   (memory attributes and compute elements; the notes carry wall times and
   are excluded).
 * ``discover_cuda(device="cpu")`` runs the kernels' plain versions under
-  real wall-clock timing.  Its discrete attributes are held to the
-  model's ground truth and to the reference's dense, unfused
-  ``discover_pallas``; both are measured, so a mismatch gets one retry of
-  both runs, as the reference's own Pallas discovery test does.  The L1
-  amount is held to ground truth only.  The latencies are wall-clock
-  ratios on a CPU the test shares with other processes, so they are held
-  to the model's order of levels and to within a factor of two; the card
-  holds them to 50 % (``chip_smoke.py``).
+  real timing.  Its discrete attributes are held to the model's ground
+  truth, which equals the reference's ``make_pallas_model()`` ground truth
+  exactly; the run is measured, so a mismatch gets one retry, as the
+  reference's own Pallas discovery test does.  (A second measured run of
+  the reference is no yardstick: on a loaded CPU either run can miss.)
+  The latencies are timing ratios on a CPU the test shares with other
+  processes, so they are held to the model's order of levels and to
+  within a factor of two; the card holds them to 50 % (``chip_smoke.py``).
 """
 import numpy as np
 import pytest
 import torch
 
-from repro.core import discover_pallas
 from repro.core import discover_sim as ref_discover_sim
 from repro.core import make_h100_like as ref_h100
 from repro.core import make_mi210_like as ref_mi210
+from repro.core.probes import make_pallas_model
 from repro_torch.core import (discover_cuda, discover_sim, make_h100_like,
                               make_mi210_like)
 from repro_torch.core.probes import CudaRunner, make_cuda_model
@@ -67,7 +67,7 @@ def _matches_ground_truth(topo, gt) -> bool:
 
 @pytest.fixture(scope="module")
 def discovery():
-    """One port and one reference discovery, rerun once on a mismatch.
+    """One port discovery, rerun once if it misses the ground truth.
 
     One torch thread: the plain chase gathers from small tables, and
     intra-op threads only contend with the other test workers."""
@@ -81,14 +81,10 @@ def discovery():
             topo, timings = discover_cuda(runner=runner,
                                           n_samples=N_SAMPLES)
             launches = [fn.launches for fn in ops.WRAPPERS]
-            ref, _ = discover_pallas(n_samples=N_SAMPLES, budget=None,
-                                     fuse=False)
-            clean = _discrete(topo) == _discrete(ref) \
-                and _matches_ground_truth(topo, gt)
-            if attempt == 0 and not clean:
+            if attempt == 0 and not _matches_ground_truth(topo, gt):
                 continue
             return {"runner": runner, "topo": topo, "timings": timings,
-                    "launches": launches, "ref": ref, "gt": gt}
+                    "launches": launches, "gt": gt}
     finally:
         torch.set_num_threads(threads)
 
@@ -124,7 +120,15 @@ def test_latencies_in_model_cycle_units(discovery):
 
 
 def test_discrete_attributes_equal_reference(discovery):
-    assert _discrete(discovery["topo"]) == _discrete(discovery["ref"])
+    """Both packages describe the same device, and the port's measured
+    discrete attributes are that device's."""
+    gt = discovery["gt"]
+    assert gt == make_pallas_model().ground_truth()
+    got = _discrete(discovery["topo"])
+    for name in ("L1", "L2"):
+        for attr in DISCRETE:
+            assert got[(name, attr)] == gt[name][attr], (name, attr)
+    assert abs(got[("VMEM", "size")] - gt["VMEM"]["size"]) <= 64
 
 
 def test_families_and_backend_identity(discovery):
