@@ -12,11 +12,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
-import shutil
 import subprocess
+import tempfile
 import threading
 import time
-from dataclasses import dataclass
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass, field
 from pathlib import Path
 
 __all__ = ["BuildInfo", "load_library", "check_launch"]
@@ -39,12 +40,14 @@ _SIGNATURES = {
 
 @dataclass(frozen=True)
 class BuildInfo:
-    """Where the library came from: its path, the seconds the build took
-    (0.0 when an earlier build was loaded) and the compiler's output."""
+    """Where the library came from: its path, the wall seconds the build
+    took (0.0 when an earlier build was loaded), each source's compile
+    seconds (taken while all compiled at once) and the compiler's output."""
 
     path: Path
     seconds: float
     log: str
+    per_source: dict = field(default_factory=dict)
 
 
 _lock = threading.Lock()
@@ -59,6 +62,13 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
+def _run(cmd: list[str]) -> tuple[subprocess.CompletedProcess, float]:
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
+    return proc, time.perf_counter() - t0
+
+
 def _build() -> BuildInfo:
     sources = sorted(CSRC.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
@@ -69,40 +79,28 @@ def _build() -> BuildInfo:
     if lib.exists():
         return BuildInfo(lib, 0.0, "")
     nvcc = _nvcc()
-    work = BUILD_DIR / f"{lib.stem}.{os.getpid()}"
-    work.mkdir(parents=True, exist_ok=True)
-    try:
-        t0 = time.perf_counter()
-        jobs = []
-        for src in sources:
-            obj = work / f"{src.stem}.o"
-            log_file = open(work / f"{src.stem}.log", "w+")
-            jobs.append((src, obj, log_file, subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
-                stdout=log_file, stderr=subprocess.STDOUT)))
-        logs, failed = [], []
-        for src, _, log_file, proc in jobs:
-            code = proc.wait()
-            with log_file:
-                log_file.seek(0)
-                logs.append(f"== {src.name}\n{log_file.read()}")
-            if code != 0:
-                failed.append(f"{src.name} ({code})")
-        log = "".join(logs)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        objs = [os.path.join(work, f"{src.stem}.o") for src in sources]
+        with ThreadPoolExecutor(len(sources)) as pool:
+            done = list(pool.map(_run, (
+                [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                for src, obj in zip(sources, objs))))
+        log = "".join(f"== {src.name}\n{proc.stdout}"
+                      for src, (proc, _) in zip(sources, done))
+        failed = [f"{src.name} ({proc.returncode})"
+                  for src, (proc, _) in zip(sources, done) if proc.returncode]
         if failed:
             raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n{log}")
-        tmp = work / lib.name
-        proc = subprocess.run([nvcc, "-shared", "-o", str(tmp),
-                               *(str(obj) for _, obj, _, _ in jobs)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
+        tmp = os.path.join(work, lib.name)
+        proc, _ = _run([nvcc, "-shared", "-o", tmp, *objs])
+        if proc.returncode:
             raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
+                               f"{proc.stdout}")
         os.replace(tmp, lib)      # atomic: a concurrent build loses nothing
-        seconds = time.perf_counter() - t0
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
-    return BuildInfo(lib, seconds, log)
+    return BuildInfo(lib, time.perf_counter() - t0, log,
+                     {src.name: sec for src, (_, sec) in zip(sources, done)})
 
 
 def load_library() -> tuple[ctypes.CDLL, BuildInfo]:

@@ -50,11 +50,11 @@ class Model:
     def forward(self, params, batch, rt: Runtime = Runtime()):
         return self.backend.forward(self.cfg, params, batch, rt)
 
-    def prefill(self, params, batch, max_len: int, rt: Runtime = Runtime()):
-        return self.backend.prefill(self.cfg, params, batch, max_len, rt)
+    def prefill(self, params, batch, max_len: int):
+        return self.backend.prefill(self.cfg, params, batch, max_len)
 
-    def decode_step(self, params, batch, cache, rt: Runtime = Runtime()):
-        return self.backend.decode_step(self.cfg, params, batch, cache, rt)
+    def decode_step(self, params, batch, cache):
+        return self.backend.decode_step(self.cfg, params, batch, cache)
 
     def init_cache(self, batch_size: int, max_len: int,
                    device: str = "cuda") -> dict:

@@ -84,12 +84,6 @@ def _init_layer(ini: Initializer, cfg) -> dict:
     return p
 
 
-def _check(rt) -> None:
-    if getattr(rt, "remat", "none") != "none":
-        raise NotImplementedError(f"remat={rt.remat!r}: rematerialisation "
-                                  f"belongs to train/, which is not ported")
-
-
 def init(cfg, generator: torch.Generator) -> dict:
     """Parameters drawn from ``generator`` on its device."""
     ini = Initializer(generator, DTYPES[cfg.dtype])
@@ -181,9 +175,8 @@ def cache_specs(cfg) -> dict:
     }
 
 
-def prefill(cfg, params, batch, max_len: int, rt=None):
+def prefill(cfg, params, batch, max_len: int):
     """Run the prompt from a zero state; return (last-token logits, cache)."""
-    _check(rt)
     x = params["embed"][batch["tokens"]]
     states, att_shift, ffn_shift = [], [], []
     for p in params["layers"]:
@@ -201,10 +194,9 @@ def prefill(cfg, params, batch, max_len: int, rt=None):
     return x[:, -1] @ params["head"], cache
 
 
-def decode_step(cfg, params, batch, cache, rt=None):
+def decode_step(cfg, params, batch, cache):
     """One-token step.  Updates ``cache`` in place and returns
     (logits, cache)."""
-    _check(rt)
     x = params["embed"][batch["tokens"]][:, 0]      # (B, d)
     for layer, p in enumerate(params["layers"]):
         scan = functools.partial(_scan_from, cache["wkv"][layer])

@@ -37,19 +37,16 @@ _MISSING = {
 
 @dataclass(frozen=True)
 class Runtime:
-    """Execution knobs.  Rematerialisation is the one the serving path
-    could be asked for; it belongs to training (``train/``, not ported)."""
+    """Execution knobs of training (``forward``, ``train_loss``), which
+    refuse every value while ``train/`` is not ported; serving takes none."""
 
     remat: str = "none"
 
 
-def _check(cfg, rt: Runtime = Runtime()) -> None:
+def _check(cfg) -> None:
     if cfg.family in _MISSING:
         raise NotImplementedError(f"family {cfg.family!r}: "
                                   f"{_MISSING[cfg.family]}")
-    if rt.remat != "none":
-        raise NotImplementedError(f"remat={rt.remat!r}: rematerialisation "
-                                  f"belongs to train/, which is not ported")
 
 
 # ------------------------------------------------------------------- init
@@ -159,13 +156,14 @@ def _logits(cfg, params, x):
 
 # -------------------------------------------------------------- entry pts
 def forward(cfg, params, batch, rt: Runtime = Runtime()):
-    raise NotImplementedError("forward: the full-sequence forward of "
-                              "training belongs to train/, which is not "
-                              "ported")
+    raise NotImplementedError(f"forward (remat={rt.remat!r}): the "
+                              f"full-sequence forward of training belongs to "
+                              f"train/, which is not ported")
 
 
 def train_loss(cfg, params, batch, rt: Runtime = Runtime()):
-    raise NotImplementedError("train_loss: train/ is not ported")
+    raise NotImplementedError(f"train_loss (remat={rt.remat!r}): train/ is "
+                              f"not ported")
 
 
 def init_cache(cfg, batch_size: int, max_len: int, dtype=None,
@@ -185,9 +183,9 @@ def cache_specs(cfg) -> dict:
     return {"k": kv, "v": kv, "len": ()}
 
 
-def prefill(cfg, params, batch, max_len: int, rt: Runtime = Runtime()):
+def prefill(cfg, params, batch, max_len: int):
     """Run the prompt, fill a KV cache, return (last-token logits, cache)."""
-    _check(cfg, rt)
+    _check(cfg)
     tokens = batch["tokens"]
     bsz, seq = tokens.shape
     if seq > max_len:
@@ -203,11 +201,11 @@ def prefill(cfg, params, batch, max_len: int, rt: Runtime = Runtime()):
     return _logits(cfg, params, x[:, -1:])[:, 0], cache
 
 
-def decode_step(cfg, params, batch, cache, rt: Runtime = Runtime()):
+def decode_step(cfg, params, batch, cache):
     """One-token step against a filled KV cache.  Writes the new k and v
     into ``cache`` in place (no copy of the whole cache per step) and
     returns (logits, cache)."""
-    _check(cfg, rt)
+    _check(cfg)
     cur = cache["len"]
     if cur >= cache["k"].shape[2]:
         raise ValueError(f"cache full: {cur} positions of "

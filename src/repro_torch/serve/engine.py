@@ -10,7 +10,10 @@ seeded numpy generator, as the reference does.
 
 ``stats`` accumulates the seconds spent in prefill and in decode (each
 ending where the sampled tokens reach the host, which waits for the
-device) and the counts of both.
+device) and the counts of both.  Each prefill and each decode step runs
+under a ``torch.profiler.record_function`` span (``serve.prefill``,
+``serve.decode_step``) that also ends there, so a trace splits the device's
+time between the two by the spans' windows.
 """
 from __future__ import annotations
 
@@ -19,8 +22,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
-
-from ..models import Runtime
+from torch.profiler import record_function
 
 __all__ = ["ServeConfig", "Engine"]
 
@@ -34,7 +36,6 @@ class ServeConfig:
     slots: int = 4
     temperature: float = 0.0        # 0 -> greedy
     device: str = "cuda"
-    rt: Runtime = Runtime()
 
 
 class Engine:
@@ -75,10 +76,11 @@ class Engine:
             raise ValueError(f"max_new must be at least 1, got {max_new}")
         rng = np.random.default_rng(seed)
         t0 = time.perf_counter()
-        logits, cache = self.model.prefill(
-            self.params, {"tokens": self._tokens(prompts)}, self.cfg.max_len,
-            self.cfg.rt)
-        outs = [self._sample(logits, rng)]
+        with record_function("serve.prefill"):
+            logits, cache = self.model.prefill(
+                self.params, {"tokens": self._tokens(prompts)},
+                self.cfg.max_len)
+            outs = [self._sample(logits, rng)]
         self.stats["prefill_s"] += time.perf_counter() - t0
         self.stats["prefills"] += 1
         alive = np.ones(prompts.shape[0], bool)
@@ -88,10 +90,11 @@ class Engine:
                 if not alive.any():
                     break
             t0 = time.perf_counter()
-            logits, cache = self.model.decode_step(
-                self.params, {"tokens": self._tokens(outs[-1][:, None])},
-                cache, self.cfg.rt)
-            outs.append(self._sample(logits, rng))
+            with record_function("serve.decode_step"):
+                logits, cache = self.model.decode_step(
+                    self.params, {"tokens": self._tokens(outs[-1][:, None])},
+                    cache)
+                outs.append(self._sample(logits, rng))
             self.stats["decode_s"] += time.perf_counter() - t0
             self.stats["decode_steps"] += 1
         return np.stack(outs, axis=1)

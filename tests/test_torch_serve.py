@@ -93,8 +93,9 @@ def _unported_calls():
         "train_loss": (lambda: dense.train_loss({}, tokens), "train/"),
         "rwkv-forward": (lambda: model("rwkv6-3b-smoke").forward({}, tokens),
                          "train/"),
-        "remat": (lambda: dense.prefill({}, tokens, 8,
-                                        rt=Runtime(remat="full")), "train/"),
+        "remat": (lambda: dense.train_loss({}, tokens,
+                                           rt=Runtime(remat="full")),
+                  "train/"),
         "mesh": (lambda: launch_serve.main(argv + ["--mesh", "2x2"]),
                  "sharding/"),
         "ckpt-dir": (lambda: launch_serve.main(argv + ["--ckpt-dir", "x"]),
