@@ -1,8 +1,8 @@
 """Bandwidth benchmark (paper §IV-I).
 
 The stream-pattern bandwidth probe is delegated to the runner (SimDevice
-returns its configured value with noise; the CUDA runner times the Triton
-stream kernels in ``repro_torch.kernels.stream_probe``).  The collective
+returns its configured value with noise; the CUDA runner times the stream
+kernels of ``repro_torch.kernels.stream_probe``).  The collective
 probes of the reference package wait for a later slice of the port.
 """
 from __future__ import annotations

@@ -3,7 +3,8 @@
 The port's counterpart of the reference package's ``PallasRunner``: every
 probe request executes the Hopper kernels of ``repro_torch.kernels`` — the
 CUDA C++ ``pchase_batch`` / ``eviction_batch`` grids for dependent-load
-chains, the Triton ``stream_read`` / ``stream_write`` kernels for bandwidth —
+chains, the CUDA C++ ``stream_read`` and Triton ``stream_write`` kernels for
+bandwidth —
 and the *caller times the whole call* (host clock around the launch plus
 ``torch.cuda.synchronize()``; on the CPU, where the plain versions run on
 the calling thread, that thread's CPU clock).

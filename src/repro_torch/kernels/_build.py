@@ -20,19 +20,21 @@ from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from pathlib import Path
 
-__all__ = ["BuildInfo", "load_library", "check_launch"]
+__all__ = ["BuildInfo", "load_library", "check_launch", "raw_stream"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signature of each entry point: (argtypes, restype).
 _SIGNATURES = {
     "pchase_batch": ((_P, _P, _P, _I, _I, _P), _I),
     "eviction_batch": ((_P, _P, _P, _P, _P, _I, _I, _I, _P), _I),
     "flash_attention_fwd": ((_P,) * 4 + (_I,) * 8 + (_P,), _I),
+    "flash_attention_sm90_fwd": ((_P,) * 4 + (_I,) * 7 + (_P,), _I),
+    "stream_read_fwd": ((_P,) * 4 + (_L, _L, _P), _I),
     "wkv6_fwd": ((_P,) * 7 + (_I,) * 6 + (_P,), _I),
     "probe_error_string": ((_I,), ctypes.c_char_p),
 }
@@ -115,6 +117,15 @@ def load_library() -> tuple[ctypes.CDLL, BuildInfo]:
                 fn.argtypes, fn.restype = argtypes, restype
             _loaded = (lib, info)
         return _loaded
+
+
+def raw_stream(device) -> int:
+    """The current CUDA stream of ``device`` as the integer a C entry point
+    takes: ``torch.cuda.current_stream(device).cuda_stream`` without
+    building a ``Stream`` object on every launch."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def check_launch(lib: ctypes.CDLL, name: str, err: int) -> None:

@@ -13,12 +13,16 @@
 // in the Pallas kernel, and the probabilities are never rounded to the
 // input dtype.
 //
-// What bounds it on the H100: at the serving shapes (S = 512, d = 128,
-// bf16) the bytes bound (q, k, v read once, o written once) and the bf16
-// tensor-core bound are both some 10-15 us.  This kernel runs on the CUDA
-// cores in float32, so the float32 rate (67 TFLOP/s) and the shared-memory
-// traffic of its inner products bound it, far above either; the
-// tensor-core rewrite (wgmma fed by TMA) is later work.
+// Which inputs it takes: float32 at every head dim, and bfloat16 at the
+// head dims that csrc/flash_attention_sm90.cu (the tensor cores, wgmma fed
+// by TMA) does not instantiate; kernels/flash_attention.py kernel_for
+// chooses by dtype and head dim.
+//
+// What bounds it on the H100: at the serving shapes (S = 512, d = 128) the
+// bytes bound (q, k, v read once, o written once) is some 15 us in bf16 and
+// 30 us in float32; the float32 operations bound is 160 us.  This kernel
+// runs on the CUDA cores in float32, so the float32 rate (67 TFLOP/s) and
+// the shared-memory traffic of its inner products bound it.
 //
 // What the design does: one block of 256 threads per (query tile of 64
 // rows, query head, batch).  The Pallas grid's sequential kv dimension is a

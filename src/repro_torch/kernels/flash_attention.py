@@ -1,18 +1,27 @@
 """Flash attention (causal or full, grouped-query) for NVIDIA Hopper.
 
-The CUDA C++ kernel lives in ``csrc/flash_attention.cu`` (its note says what
-bounds it and how it is laid out); this module launches it and holds its
-plain PyTorch version.  It replaces the reference's Pallas
-``flash_attention`` (``repro/kernels/flash_attention.py:78``).
+Two CUDA C++ kernels replace the reference's Pallas ``flash_attention``
+(``repro/kernels/flash_attention.py:78``); ``kernel_for`` picks one by dtype
+and head dim alone:
 
-Both take the model layout: q (B, Sq, Hq, d), k and v (B, Sk, Hkv, d), with
-query head h reading kv head ``h // (Hq // Hkv)``, the causal mask
-``row >= col`` counted from position 0, the scores scaled by ``1/sqrt(d)``
-and the output in q's dtype.  The kernel takes Sq and Sk in multiples of
-``BLOCK`` and d in ``HEAD_DIMS``, float32 or bfloat16; the padding of a
-ragged causal prompt is the wrapper's (``ops.mha``).  Inputs are validated
-there; the functions here assume contiguous tensors of matching shapes on
-one device.
+* ``csrc/flash_attention_sm90.cu`` for bfloat16 at ``SM90_HEAD_DIMS``: the
+  tensor cores (``wgmma`` on tiles that TMA loads), with the probabilities
+  rounded to bfloat16 for the P.V product, as the reference's f32 dot at
+  default precision does on the TPU's matrix unit;
+* ``csrc/flash_attention.cu`` for float32 and the other head dims: the CUDA
+  cores, all in float32.
+
+Each source's note says what bounds it and how it is laid out.  This module
+launches them and holds their plain PyTorch version.
+
+The kernels and the plain version take the model layout: q (B, Sq, Hq, d),
+k and v (B, Sk, Hkv, d), with query head h reading kv head
+``h // (Hq // Hkv)``, the causal mask ``row >= col`` counted from position
+0, the scores scaled by ``1/sqrt(d)`` and the output in q's dtype.  The
+kernels take Sq and Sk in multiples of ``BLOCK`` and d in ``HEAD_DIMS``,
+float32 or bfloat16; the padding of a ragged causal prompt is the
+wrapper's (``ops.mha``).  Inputs are validated there; the functions here
+assume contiguous tensors of matching shapes on one device.
 """
 from __future__ import annotations
 
@@ -20,36 +29,58 @@ import math
 
 import torch
 
-from ._build import check_launch, load_library
+from ._build import check_launch, load_library, raw_stream
 
-__all__ = ["BLOCK", "HEAD_DIMS", "NEG_INF", "flash_attention_kernel",
-           "flash_attention_plain"]
+__all__ = ["BLOCK", "HEAD_DIMS", "SM90_HEAD_DIMS", "NEG_INF", "SOURCES",
+           "kernel_for", "flash_attention_kernel", "flash_attention_plain"]
 
 BLOCK = 64                      # kBlock of csrc/flash_attention.cu
 HEAD_DIMS = (16, 32, 64, 128, 256)
+SM90_HEAD_DIMS = (64, 128)      # instantiated in csrc/flash_attention_sm90.cu
 NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# kernel_for's answer -> the source of that kernel, under kernels/
+SOURCES = {"sm90": "csrc/flash_attention_sm90.cu",
+           "cuda_core": "csrc/flash_attention.cu"}
+
+
+def kernel_for(dtype: torch.dtype, d: int) -> str:
+    """Which kernel takes inputs of ``dtype`` at head dim ``d``: ``"sm90"``
+    (tensor cores) for bfloat16 at ``SM90_HEAD_DIMS``, else ``"cuda_core"``.
+    The choice depends on nothing else."""
+    return ("sm90" if dtype == torch.bfloat16 and d in SM90_HEAD_DIMS
+            else "cuda_core")
 
 
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            causal: bool) -> torch.Tensor:
-    """CUDA flash attention: one block per (query tile, head, batch), the kv
-    tiles in a loop that stops at the diagonal when ``causal``."""
+    """CUDA flash attention by the kernel ``kernel_for(q.dtype, d)`` names:
+    each query tile of each head and batch element walks the kv tiles in a
+    loop that stops at the diagonal when ``causal``."""
     lib, _ = load_library()
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    check_launch(lib, "flash_attention_fwd", lib.flash_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hkv,
-        sq, sk, d, int(causal), _DTYPE_CODES[q.dtype], stream))
+    stream = raw_stream(q.device)
+    if kernel_for(q.dtype, d) == "sm90":
+        check_launch(lib, "flash_attention_sm90_fwd",
+                     lib.flash_attention_sm90_fwd(
+                         q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         out.data_ptr(), b, hq, hkv, sq, sk, d, int(causal),
+                         stream))
+    else:
+        check_launch(lib, "flash_attention_fwd", lib.flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq,
+            hkv, sq, sk, d, int(causal), _DTYPE_CODES[q.dtype], stream))
     return out
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           causal: bool) -> torch.Tensor:
     """Plain version: dense softmax attention in float32, the same function
-    as the kernel (probabilities kept in float32, output in q's dtype)."""
+    as the kernels (probabilities kept in float32, output in q's dtype; the
+    tensor-core kernel's bf16 probabilities are within the tolerance that
+    ``chip_smoke.py`` states)."""
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     qg = q.float().reshape(b, sq, hkv, hq // hkv, d)

@@ -45,7 +45,8 @@ def _check(name: str, t, dtype, ndim: int, device: torch.device) -> None:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
-    if any(s > _INT_MAX for s in t.shape):
+    n = t.numel()
+    if (n > _INT_MAX or n == 0) and max(t.shape, default=0) > _INT_MAX:
         raise ValueError(f"{name}: dimension beyond int32 range")
 
 

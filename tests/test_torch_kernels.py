@@ -4,7 +4,9 @@ On the CPU the wrappers in ``repro_torch.kernels.ops`` run the kernels'
 plain PyTorch versions, so these tests pin those versions to the Pallas
 kernels (interpret mode) and to the pure-Python contracts.  The CUDA and
 Triton kernels themselves are held to the same plain versions on the card
-by ``chip_smoke.py``.
+by ``chip_smoke.py``; here only the contract between the wrappers and the
+CUDA sources (entry points, argument counts, tile constants) is read from
+the sources.
 
 Tolerances: the chase and eviction rows are integer contracts and must be
 bit-exact (int32 checksum wrap-around included); ``stream_write`` adds 1.0
@@ -13,6 +15,8 @@ values per block in another order than XLA, so it is held to rtol 1e-5
 (float32 pairwise-sum error over 2**15 positive terms is below 1e-6).
 """
 import os
+import pathlib
+import re
 import shutil
 import subprocess
 import sys
@@ -28,7 +32,7 @@ from repro.kernels.pchase_probe import (eviction_kernel_batch,
                                         pchase_reference)
 from repro.kernels.stream_probe import stream_read_kernel, stream_write_kernel
 from repro_torch.core.probes.runners import random_cycle
-from repro_torch.kernels import ops
+from repro_torch.kernels import _build, ops, stream_probe
 from repro_torch.kernels.pchase_probe import (eviction_batch_plain,
                                               pchase_batch_plain)
 
@@ -123,7 +127,8 @@ def test_checksum_wraps_like_int32():
     np.testing.assert_array_equal(got_e, np.array(ref_e, dtype=np.int32))
 
 
-@pytest.mark.parametrize("n,block", [(1 << 17, 1 << 15), (1 << 16, 1 << 16)])
+@pytest.mark.parametrize("n,block", [(1 << 17, 1 << 15), (1 << 16, 1 << 16),
+                                     (3 * 1001, 1001)])
 def test_stream_read_matches_pallas(n, block):
     x = np.random.default_rng(n).random(n, dtype=np.float32)
     got = ops.stream_read(torch.from_numpy(x), block=block).numpy()
@@ -138,6 +143,33 @@ def test_stream_write_matches_pallas(n):
     got = ops.stream_write(torch.from_numpy(x)).numpy()
     want = np.asarray(stream_write_kernel(jnp.asarray(x), block=1 << 15))
     np.testing.assert_array_equal(got, want)
+
+
+def _entry_points() -> dict:
+    """Each ``extern "C"`` function of ``csrc/*.cu``: its parameter count."""
+    found = {}
+    for src in sorted(_build.CSRC.glob("*.cu")):
+        for name, params in re.findall(
+                r'extern "C" [\w ]+?\*?\s*(\w+)\(([^)]*)\)', src.read_text()):
+            found[name] = len([p for p in params.split(",") if p.strip()])
+    return found
+
+
+def test_every_entry_point_has_a_signature_of_its_arity():
+    """ctypes passes what ``_SIGNATURES`` says: a missing or miscounted
+    entry would cut a pointer or shift every argument after it."""
+    found = _entry_points()
+    assert {"stream_read_fwd", "flash_attention_sm90_fwd",
+            "flash_attention_fwd"} <= set(found)
+    assert set(found) == set(_build._SIGNATURES)
+    for name, arity in found.items():
+        assert len(_build._SIGNATURES[name][0]) == arity, name
+
+
+def test_stream_read_slice_matches_its_source():
+    """The wrapper sizes the partials buffer by the kernel's slice."""
+    src = (pathlib.Path(_build.CSRC) / "stream_probe.cu").read_text()
+    assert f"constexpr int kSlice = {stream_probe.READ_SLICE};" in src
 
 
 def test_wrappers_count_each_launch_on_cpu():

@@ -19,7 +19,15 @@ Tolerances:
   sequential forms associate the decays differently (the reference's own
   sweep uses 1e-4).
 * the chase: bit-exact, int32 checksum wrap included.
+* the tensor-core kernel's bf16 probabilities, emulated here:
+  rtol 2**-7, atol 2**-8 max|v| against the float32 plain version, the
+  tolerance ``chip_smoke.py`` holds that kernel to on the card (its
+  reasoning is beside ``ATTN_TOL`` there).
 """
+import math
+import pathlib
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -30,6 +38,7 @@ from repro.kernels.flash_attention import flash_attention
 from repro.kernels.pchase_probe import pchase_kernel
 from repro.kernels.rwkv6_scan import wkv6_chunked_kernel
 from repro_torch.core.probes.runners import random_cycle
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.kernels.pchase_probe import pchase_reference
 
@@ -91,6 +100,96 @@ def test_mha_pads_a_ragged_causal_prompt_exactly(sq, sk, dtype):
     assert tuple(got.shape) == (2, sq, 6, 32)
     tol = ATTN_TOL[dtype]
     np.testing.assert_allclose(_as_np(got), _as_np(want), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.bfloat16, 128, "sm90"), (torch.bfloat16, 64, "sm90"),
+    (torch.bfloat16, 16, "cuda_core"), (torch.bfloat16, 32, "cuda_core"),
+    (torch.bfloat16, 256, "cuda_core"), (torch.float32, 64, "cuda_core"),
+    (torch.float32, 128, "cuda_core"), (torch.float32, 256, "cuda_core")])
+def test_kernel_for_picks_tensor_cores_for_bf16_at_64_and_128(dtype, d,
+                                                              want):
+    assert fa.kernel_for(dtype, d) == want
+    assert fa.SOURCES[want].startswith("csrc/")
+
+
+def _csrc(name: str) -> str:
+    return (pathlib.Path(fa.__file__).parent / "csrc" / name).read_text()
+
+
+def test_sm90_head_dims_are_the_ones_its_source_instantiates():
+    """The dispatch never routes a head dim to the tensor-core entry point
+    that its switch would refuse, and both tiles agree with ``BLOCK``."""
+    src = _csrc("flash_attention_sm90.cu")
+    cases = re.findall(r"case (\d+): return launch<(\d+)>", src)
+    assert sorted(int(a) for a, b in cases if a == b) == \
+        sorted(fa.SM90_HEAD_DIMS)
+    assert "sq % 64 != 0 || sk % 64 != 0" in src and fa.BLOCK == 64
+    assert set(fa.SM90_HEAD_DIMS) <= set(fa.HEAD_DIMS)
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,causal", [
+    (1, 4, 2, 192, 128, True),       # a multiple of 64 that is not of 128
+    (2, 2, 1, 128, 64, False),
+], ids=["d128-causal-S192", "d64-full"])
+def test_mha_bf16_at_the_tensor_core_head_dims_matches_pallas(b, hq, hkv, s,
+                                                              d, causal):
+    (jq, jk, jv), (tq, tk, tv) = _attn_inputs(b, hq, hkv, s, s, d, "bfloat16",
+                                              seed=s + d)
+    want = jnp.swapaxes(flash_attention(
+        jnp.swapaxes(jq, 1, 2), jnp.swapaxes(jk, 1, 2),
+        jnp.swapaxes(jv, 1, 2), causal=causal, block_q=64, block_k=64), 1, 2)
+    got = ops.mha(tq, tk, tv, causal=causal)
+    assert got.dtype == torch.bfloat16
+    tol = ATTN_TOL["bfloat16"]
+    np.testing.assert_allclose(_as_np(got), _as_np(want), rtol=tol, atol=tol)
+
+
+def _tiled_bf16_probabilities(q, k, v, causal, tile=128):
+    """The tensor-core kernel's numerics on (B, S, H, d) float32 inputs (one
+    kv head per query head): float32 scores, an online softmax over
+    ``tile``-key tiles in the log2 domain, the unnormalised probabilities
+    rounded to bfloat16 for P.V (their sum taken before rounding), and the
+    output rounded to bfloat16."""
+    b, s, h, d = q.shape
+    c = math.log2(math.e) / math.sqrt(d)
+    m = torch.full((b, h, s), -math.inf)
+    l = torch.zeros(b, h, s)
+    acc = torch.zeros(b, h, s, d)
+    rows = torch.arange(s)[:, None]
+    for n0 in range(0, s, tile):
+        kt, vt = k[:, n0:n0 + tile], v[:, n0:n0 + tile]
+        sc = torch.einsum("bqhd,bkhd->bhqk", q, kt)
+        if causal:
+            cols = n0 + torch.arange(kt.shape[1])[None, :]
+            sc = sc.masked_fill(cols > rows, -math.inf)
+        m_new = torch.maximum(m, sc.amax(-1) * c)
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(sc * c - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhqk,bkhd->bhqd", p.bfloat16().float(), vt)
+        m = m_new
+    return (acc / l[..., None]).transpose(1, 2).bfloat16()
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_bf16_probability_rounding_stays_within_the_stated_tolerance(causal):
+    """Rounding p to bf16 moves an output by at most 2**-9 max|v|, and the
+    output's own bf16 rounding by one ulp (2**-7 of it): the emulated kernel
+    stays within rtol 2**-7, atol 2**-8 max|v| of the float32 plain
+    version, at the serving head dim and length."""
+    rng = np.random.default_rng(13)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 512, 8, 128),
+                                                    dtype=np.float32))
+               .bfloat16().float() for _ in range(3))
+    got = _tiled_bf16_probabilities(q, k, v, causal)
+    want = fa.flash_attention_plain(q, k, v, causal)
+    atol = 2 ** -8 * float(v.abs().max())
+    diff = (got.float() - want).abs()
+    assert float(diff.max()) > 0          # the rounding does move outputs
+    assert bool((diff <= 2 ** -7 * want.abs() + atol).all()), \
+        float((diff - 2 ** -7 * want.abs()).max())
 
 
 def _wkv_inputs(b, t, h, kd, vd, seed):
@@ -185,6 +284,8 @@ def _bad_calls():
         "float16": lambda: ops.mha(q.half(), kv.half(), kv.half()),
         "head-dim": lambda: ops.mha(q[..., :24], kv[..., :24],
                                     kv[..., :24]),
+        "head-dim-bf16": lambda: ops.mha(*(t[..., :24].bfloat16()
+                                           for t in (q, kv, kv))),
         "groups": lambda: ops.mha(q[:, :, :3], kv, kv),
         "wkv-shape": lambda: ops.wkv6(*wkv[:3], wkv[3][:, :16], u),
         "wkv-dtype": lambda: ops.wkv6(wkv[0].double(), *wkv[1:], u),
