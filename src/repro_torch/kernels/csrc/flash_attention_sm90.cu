@@ -26,10 +26,10 @@
 // What the design does about that (FlashAttention-3's shape):
 // * A persistent grid of one block of three warpgroups per SM walks the
 //   units of work (128 query rows of one head of one batch element) in
-//   snake order, the longest causal loops in the first round.  Warpgroup 0 is the producer: it gives up
-//   its registers (setmaxnreg) and one thread issues every load, running
-//   ahead into the next unit, so a unit's Q, K and V arrive while the one
-//   before it computes.  Warpgroups 1 and 2 are consumers of 64 query rows
+//   snake order, the longest causal loops in the first round.  Warpgroup 0
+//   is the producer: it gives up its registers (setmaxnreg) and one thread
+//   issues every load, running ahead into the next unit, so a unit's Q, K
+//   and V arrive while the one before it computes.  Warpgroups 1 and 2 are consumers of 64 query rows
 //   each; while one computes its softmax the other's products keep the
 //   tensor cores busy.  (Making them take turns at issuing wgmma, with
 //   named barriers as FlashAttention-3 does, did not help at these shapes.)
@@ -56,15 +56,17 @@
 //   unit.  TMA writes no row at or past Sq (the zero-filled half of a
 //   64-row tail).
 //
-// The C entry point builds the tensor maps on the host for each call
+// The C entry point builds the tensor maps on the host
 // (cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint, so the
-// library links no driver library), launches on the given stream, does not
+// library links no driver library; the last few maps are kept for calls on
+// the same tensors), launches on the given stream, does not
 // synchronise, and returns cudaGetLastError() (cudaErrorInvalidValue for a
 // shape it does not take).
 
 #include <climits>
 #include <cmath>
 #include <cstdint>
+#include <mutex>
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -121,7 +123,8 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
 // ---- TMA -----------------------------------------------------------------
 // One box of a 4-D tensor map into shared memory; completion is counted
 // in bytes on `bar`.
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map,
                                             uint32_t bar, int c0, int c1,
                                             int c2, int c3) {
   asm volatile(
@@ -148,9 +151,9 @@ __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
 __device__ __forceinline__ void tma_prefetch_4d(const CUtensorMap* map, int c0,
                                                 int c1, int c2, int c3) {
   asm volatile(
-      "cp.async.bulk.prefetch.tensor.4d.L2.global [%0, {%1, %2, %3, %4}];" ::"l"(
-          reinterpret_cast<uint64_t>(map)),
-      "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      "cp.async.bulk.prefetch.tensor.4d.L2.global [%0, {%1, %2, %3, %4}];"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
       : "memory");
 }
 
@@ -606,14 +609,49 @@ bool make_map(CUtensorMap* map, const void* ptr, int d, int heads, int seq,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// The last kCachedMaps maps built, by everything that decides them.
+// Encoding one costs about as much host time as the launch itself, and a
+// call whose tensors sit where an earlier call's did (the caching
+// allocator's usual case) needs the same maps again.
+constexpr int kCachedMaps = 16;
+
+struct MapKey {
+  const void* ptr;
+  int d, heads, seq, batch, rows;
+  bool operator==(const MapKey& o) const {
+    return ptr == o.ptr && d == o.d && heads == o.heads && seq == o.seq &&
+           batch == o.batch && rows == o.rows;
+  }
+};
+
+bool cached_map(CUtensorMap* map, const MapKey& key) {
+  static std::mutex lock;
+  static MapKey keys[kCachedMaps] = {};
+  static CUtensorMap maps[kCachedMaps];
+  static int next = 0;
+  const std::lock_guard<std::mutex> hold_lock(lock);
+  for (int i = 0; i < kCachedMaps; ++i)
+    if (keys[i].ptr != nullptr && keys[i] == key) {
+      *map = maps[i];
+      return true;
+    }
+  if (!make_map(map, key.ptr, key.d, key.heads, key.seq, key.batch,
+                key.rows))
+    return false;
+  keys[next] = key;
+  maps[next] = *map;
+  next = (next + 1) % kCachedMaps;
+  return true;
+}
+
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int b,
            int hq, int hkv, int sq, int sk, int causal, cudaStream_t stream) {
   CUtensorMap mq, mk, mv, mo;
-  if (!make_map(&mq, q, D, hq, sq, b, kBM) ||
-      !make_map(&mk, k, D, hkv, sk, b, kBN) ||
-      !make_map(&mv, v, D, hkv, sk, b, kBN) ||
-      !make_map(&mo, o, D, hq, sq, b, kBM / 2))
+  if (!cached_map(&mq, {q, D, hq, sq, b, kBM}) ||
+      !cached_map(&mk, {k, D, hkv, sk, b, kBN}) ||
+      !cached_map(&mv, {v, D, hkv, sk, b, kBN}) ||
+      !cached_map(&mo, {o, D, hq, sq, b, kBM / 2}))
     return static_cast<int>(cudaErrorInvalidValue);
   constexpr int smem = Layout<D>::kBytes;
   // per device, set once: the shared-memory opt-in and the SM count
