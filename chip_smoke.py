@@ -23,24 +23,30 @@ to a plain version):
              discrete attributes held to ``make_cuda_model().ground_truth()``
              and every probe kernel's launch count, read around this phase
              alone, above zero;
-4. llm kernels — ``ops.mha`` (the tensor-core kernel for bf16, the
-             CUDA-core one for f32), ``ops.wkv6`` and ``ops.pchase`` at the
-             shapes the serve phase gives them, against their plain
-             versions (tolerances at each check), with CUDA-event times,
-             bounds and, for attention, ``scaled_dot_product_attention`` as
-             the library yardstick;
+4. llm kernels — ``ops.mha`` (the tensor-core kernel for bf16 at head
+             dims 64 and 128, the CUDA-core one for f32 and bf16 at head
+             dim 256), ``ops.wkv6`` and ``ops.pchase`` at the shapes the
+             serve phase gives them, against their plain versions
+             (tolerances at each check; the tensor-core kernel also against
+             the plain emulation of its own numerics), with CUDA-event
+             times, bounds and, for attention,
+             ``scaled_dot_product_attention`` as the library yardstick;
 5. serve   — ``repro_torch.launch.serve.main`` at full width and depth in
              bfloat16 for qwen3-14b, then rwkv6-3b (8 requests of 512
              tokens, 16 new tokens each, 4 slots): the launch counts read
              around each call alone (one ``mha`` or ``wkv6`` per layer and
-             wave), 16 tokens a request, finite logits, equal greedy tokens
+             wave; every ``mha`` a launch of the tensor-core kernel, counted
+             where that kernel launches), 16 tokens a request, finite
+             logits, equal greedy tokens
              from a second, warm run of one wave; that warm wave's prefill
              and decode split, and a third run of it under
              ``torch.profiler`` for the device-busy time and idle share of
              each (split by the engine's ``serve.prefill`` and
              ``serve.decode_step`` spans; qwen3-14b's prefill must show the
-             tensor-core attention kernel once a layer); then the smoke
-             configs on the card against the same weights on the CPU.
+             tensor-core attention kernel once a layer, and prints its
+             device time there); then the smoke configs in f32 on the card
+             (where the CUDA-core attention kernel runs) against the same
+             weights on the CPU.
 
 The last two lines of standard output are the kernels summary and the
 device line, each one JSON object.  Exits non-zero without them when there
@@ -404,33 +410,49 @@ def phase_discover() -> dict:
 # 40 query and 8 kv heads of 128, rwkv6-3b's 40 heads of 64.
 ATTN = dict(b=4, hq=40, hkv=8, s=512, d=128)
 WKV = dict(b=4, t=512, h=40, k=64, chunk=32)
-# Attention, |got - want| <= rtol |want| + atol (the plain version's output).
-# bf16 (the tensor-core kernel): both versions accumulate in f32 and round
-# the output once to bf16, which differs by at most one ulp, at most 2**-7
-# of the value.  The kernel also rounds each unnormalised probability p to
-# bf16 for P.V, as the reference's f32 dot does on the TPU's matrix unit:
-# each weight moves by at most 2**-9 of itself, so an output moves by at
-# most 2**-9 sum(p / l)|v| <= 2**-9 max|v|; atol is twice that,
-# 2**-8 max|v|, and stays below the reference's own bf16 tolerance for the
-# kernel, 3e-2.  (The earlier atol of 2e-3 held a kernel that kept p in
-# f32; a few outputs in the first rows, where few keys carry the weight,
-# exceed it now, and each check prints their share.)
-# f32 (the CUDA-core kernel): the online and the dense softmax sum in other
-# orders.
-ATTN_TOL = {torch.bfloat16: (2 ** -7, 2 ** -8), torch.float32: (2e-5, 2e-5)}
-ATTN_ATOL_SCALES_WITH_V = {torch.bfloat16: True, torch.float32: False}
+# Attention, |got - want| <= rtol |want| + atol, by (kernel, dtype): the
+# kernel against the plain version (dense softmax in f32, output in q's
+# dtype), and the tensor-core kernel also against the plain emulation of its
+# own numerics.
+# * sm90, bf16, against the plain version: both accumulate in f32 and round
+#   the output once to bf16, which differs by at most one ulp, at most 2**-7
+#   of the value.  The kernel also rounds each unnormalised probability p to
+#   bf16 for P.V, as the reference's f32 dot does on the TPU's matrix unit:
+#   each weight moves by at most 2**-9 of itself, so an output moves by at
+#   most 2**-9 sum(p / l)|v| <= 2**-9 max|v|; atol is twice that,
+#   2**-8 max|v|, and stays below the reference's own bf16 tolerance for the
+#   kernel, 3e-2.  (The earlier atol of 2e-3 held a kernel that kept p in
+#   f32; a few outputs in the first rows, where few keys carry the weight,
+#   exceed it now, and each check prints their share.)
+# * sm90, bf16, against flash_attention_sm90_plain (the same rounding of p,
+#   the same 128-key tiles): one ulp of the output, 2**-7, and an atol of
+#   2**-10 max|v|, for the rare p whose bf16 rounding flips between the two
+#   because they sum the f32 scores in other orders (each flip moves an
+#   output by 2**-8 (p / l)|v|; a CPU emulation with scores perturbed by
+#   2**-20 of themselves, B 2, Hq 20, S 512, put the worst excess over
+#   2**-7 |want| at 2**-11.9 max|v|).  A late causal row's outputs are about
+#   0.05 at N(0, 1) inputs, so an error of a tenth of one of them fails.
+# * cuda_core, bf16 (head dims the tensor-core kernel does not take): p
+#   stays f32, so the output's one bf16 rounding and a small atol.
+# * cuda_core, f32: the online and the dense softmax sum in other orders.
+ATTN_TOL = {("sm90", torch.bfloat16): (2 ** -7, 2 ** -8),
+            ("cuda_core", torch.bfloat16): (2 ** -7, 2e-3),
+            ("cuda_core", torch.float32): (2e-5, 2e-5)}
+ATTN_ATOL_SCALES_WITH_V = {"sm90": True, "cuda_core": False}
+SM90_EMULATION_TOL = (2 ** -7, 2 ** -10)       # atol in units of max|v|
 OLD_BF16_ATOL = 2e-3
 # (dtype, sequence length, causal, head dim): the serving shape in bf16 and
 # f32, a ragged prompt (padded by ops.mha), full attention, a length that is
 # a multiple of 64 but not of 128 (the tensor-core kernel's half-empty query
-# tile), and head dim 64.
+# tile), head dim 64, and bf16 at head dim 256 (the CUDA-core kernel).
 ATTN_CASES = ((torch.bfloat16, 512, True, 128),
               (torch.float32, 512, True, 128),
               (torch.bfloat16, 500, True, 128),
               (torch.float32, 500, True, 128),
               (torch.bfloat16, 512, False, 128),
               (torch.bfloat16, 448, True, 128),
-              (torch.bfloat16, 512, True, 64))
+              (torch.bfloat16, 512, True, 64),
+              (torch.bfloat16, 512, True, 256))
 # WKV6 in f32: 64-term dot products and 32-step chunk sums in other
 # orders; errors scale with the largest output.
 WKV_RTOL = 1e-4
@@ -462,9 +484,9 @@ def phase_llm_kernels() -> dict:
 
     from repro_torch.core.probes.runners import random_cycle
     from repro_torch.kernels import ops
-    from repro_torch.kernels.flash_attention import (SOURCES,
-                                                     flash_attention_plain,
-                                                     kernel_for)
+    from repro_torch.kernels.flash_attention import (
+        SOURCES, flash_attention_plain, flash_attention_sm90_plain,
+        kernel_for)
     from repro_torch.kernels.pchase_probe import (pchase_plain,
                                                   pchase_reference)
     from repro_torch.kernels.rwkv6_scan import wkv6_plain
@@ -483,14 +505,15 @@ def phase_llm_kernels() -> dict:
         got = ops.mha(q, k, v, causal=causal)
         torch.cuda.synchronize()
         want = flash_attention_plain(q, k, v, causal)
-        rtol, atol = ATTN_TOL[dtype]
-        if ATTN_ATOL_SCALES_WITH_V[dtype]:
-            atol *= float(v.float().abs().max())
+        route = kernel_for(dtype, d)
+        rtol, atol = ATTN_TOL[(route, dtype)]
+        vmax = float(v.float().abs().max())
+        if ATTN_ATOL_SCALES_WITH_V[route]:
+            atol *= vmax
         diff = (got.float() - want.float()).abs()
         err = float(diff.max())
         old_refused = float((diff > OLD_BF16_ATOL + rtol * want.float().abs())
                             .float().mean())
-        route = kernel_for(dtype, d)
         shape = (f"B={b},Hq={hq},Hkv={hkv},S={seq},d={d},"
                  f"{str(dtype).split('.')[-1]},"
                  f"{'causal' if causal else 'full'}")
@@ -499,6 +522,23 @@ def phase_llm_kernels() -> dict:
         check(torch.allclose(got.float(), want.float(), rtol=rtol, atol=atol),
               f"mha {shape}: max_abs_err {err} beyond rtol={rtol:g}, "
               f"atol={atol:g}")
+        emulated = ""
+        if route == "sm90":
+            e_rtol, e_atol = SM90_EMULATION_TOL
+            e_atol *= vmax
+            emu = flash_attention_sm90_plain(q, k, v, causal).float()
+            e_diff = (got.float() - emu).abs()
+            excess = float((e_diff - e_rtol * emu.abs()).max())
+            check(bool((e_diff <= e_rtol * emu.abs() + e_atol).all()),
+                  f"mha {shape}: against the emulation of its numerics, "
+                  f"max_abs_err {float(e_diff.max())}, largest excess over "
+                  f"rtol {e_rtol:g} {excess:g} beyond atol {e_atol:g}")
+            late = float(e_diff[:, seq // 2:].max())
+            emulated = (f"; against flash_attention_sm90_plain rtol="
+                        f"{e_rtol:g} atol={e_atol:g} ok (max_abs_err="
+                        f"{float(e_diff.max()):g}, largest excess over rtol "
+                        f"{excess:g}, in rows >= S/2 {late:g})")
+            del emu, e_diff
         k_ms = event_ms(lambda: ops.mha(q, k, v, causal=causal))
         p_ms = event_ms(lambda: flash_attention_plain(q, k, v, causal),
                         reps=5)
@@ -510,9 +550,9 @@ def phase_llm_kernels() -> dict:
         b_ms, b_by = bound_ms(nbytes, n_ops, BF16_OPS_PER_S
                               if dtype == torch.bfloat16 else FP32_OPS_PER_S)
         old = (f"; share beyond the old atol {OLD_BF16_ATOL:g}: "
-               f"{old_refused:.2e}" if dtype == torch.bfloat16 else "")
+               f"{old_refused:.2e}" if route == "sm90" else "")
         print(f"[llm] mha {shape} ({route} kernel): rtol={rtol:g} "
-              f"atol={atol:g} ok (max_abs_err={err:g}{old}); "
+              f"atol={atol:g} ok (max_abs_err={err:g}{old}){emulated}; "
               f"kernel_ms={k_ms:.4f} ({n_ops / k_ms / 1e9:.1f} TFLOP/s, "
               f"{b_ms / k_ms:.3f} of the bound) bound_ms={b_ms:.6f} "
               f"({b_by}) plain_ms={p_ms:.4f} library_ms={l_ms:.4f} "
@@ -707,8 +747,13 @@ def _smoke_agreement(arch: str, overrides: dict) -> float:
 
 
 def phase_serve() -> dict:
+    """Returns the kernels' launch counts read around the serve runs: the
+    wrappers' (``mha`` counted as the tensor-core kernel's own launches)
+    and, as ``mha_f32``, the CUDA-core attention kernel's launches in the
+    f32 smoke run."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import LAUNCHES as ATTN_LAUNCHES
     from repro_torch.launch import serve
 
     torch.backends.cuda.matmul.allow_tf32 = False    # full f32 (smoke check)
@@ -719,11 +764,19 @@ def phase_serve() -> dict:
         ops.reset_launches()
         res = serve.main(_serve_argv(arch))
         counts = {fn.__name__: fn.launches for fn in ops.LLM_WRAPPERS}
+        routes = dict(ATTN_LAUNCHES)
         want = {"mha": 0, "wkv6": 0, "pchase": 0,
                 kernel: cfg.n_layers * waves}
         check(counts == want == res["launches"],
               f"{arch}: launches {counts} (reported {res['launches']}), "
               f"expected {want}")
+        # every mha call of the bf16, head-dim-128 model is a launch of the
+        # tensor-core kernel, counted where that kernel launches
+        want_routes = {"sm90": want["mha"], "cuda_core": 0}
+        check(routes == want_routes,
+              f"{arch}: attention kernel launches {routes}, expected "
+              f"{want_routes}")
+        counts["mha"] = routes["sm90"]
         for name, count in counts.items():
             launches[name] += count
         check(all(o.shape == (SERVE["max_new"],) for o in res["outputs"]),
@@ -739,7 +792,8 @@ def phase_serve() -> dict:
               f"wall {res['wall_s']:.3f}s, {res['tok_per_s']:.1f} tok/s, "
               f"prefill {res['prefill_s']:.3f}s ({eng.stats['prefills']} "
               f"waves), decode {res['decode_s']:.3f}s "
-              f"({eng.stats['decode_steps']} steps); launches {counts}")
+              f"({eng.stats['decode_steps']} steps); launches {counts}; "
+              f"attention kernels {routes}")
         prompts = np.stack(res["requests"][:SERVE["slots"]])
         before = dict(eng.stats)
         again = eng.generate_batch(prompts, SERVE["max_new"])
@@ -752,13 +806,18 @@ def phase_serve() -> dict:
         if kernel == "mha":
             # the wave's prefill went through the tensor-core kernel, once a
             # layer (the model runs bf16 at head dim 128)
-            sm90 = sum(n for kname, (_, n) in parts["prefill"].items()
-                       if "flash_fwd_sm90_kernel" in kname)
+            mine = [(us, n) for kname, (us, n) in parts["prefill"].items()
+                    if "flash_fwd_sm90_kernel" in kname]
+            sm90 = sum(n for _, n in mine)
+            sm90_ms = sum(us for us, _ in mine) / 1e3
+            busy_ms = sum(us for us, _ in parts["prefill"].values()) / 1e3
             check(sm90 == cfg.n_layers,
                   f"{arch}: flash_fwd_sm90_kernel ran {sm90} times in the "
                   f"warm wave's prefill, expected {cfg.n_layers}")
             print(f"[profile] {arch}: flash_fwd_sm90_kernel {sm90}x in the "
-                  f"warm wave's prefill")
+                  f"warm wave's prefill, device time {sm90_ms:.4f} ms "
+                  f"({sm90_ms / sm90:.4f} ms each), {sm90_ms / busy_ms:.4f} "
+                  f"of the prefill's device busy time {busy_ms:.3f} ms")
         with torch.no_grad():
             logits, _ = eng.model.prefill(
                 eng.params, {"tokens": torch.as_tensor(
@@ -773,17 +832,24 @@ def phase_serve() -> dict:
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-    # the serve runs are bf16 at head dim 128: the CUDA-core attention
-    # kernel takes none of their mha launches, only the f32 smoke configs'
-    launches["mha_f32"] = 0
+    # the serve runs are bf16 at head dim 128, so the CUDA-core attention
+    # kernel runs in the f32 smoke configs' prefill on the card
     for arch, overrides in (("qwen3-14b-smoke", dict(n_heads=6,
                                                       n_kv_heads=2)),
                             ("rwkv6-3b-smoke", {})):
         ops.reset_launches()
         err = _smoke_agreement(arch, overrides)
+        routes = dict(ATTN_LAUNCHES)
+        check(routes["sm90"] == 0 and routes["cuda_core"] == ops.mha.launches
+              // 2, f"{arch}: attention kernel launches {routes} for "
+              f"{ops.mha.launches} mha calls (half of them on the CPU)")
+        if arch == "qwen3-14b-smoke":
+            check(routes["cuda_core"] > 0,
+                  f"{arch}: the CUDA-core attention kernel never launched")
+            launches["mha_f32"] = routes["cuda_core"]
         print(f"[serve] {arch} float32 on the card vs the CPU: logits within "
-              f"rtol=atol={SMOKE_TOL} (max_abs_err={err:g}); mha launches "
-              f"on the card {ops.mha.launches} (CUDA-core kernel, f32)")
+              f"rtol=atol={SMOKE_TOL} (max_abs_err={err:g}); attention "
+              f"kernel launches on the card {routes}")
     return launches
 
 
@@ -828,7 +894,8 @@ def main() -> int:
         "wkv6": ("cuda", "src/repro_torch/kernels/csrc/wkv6.cu"),
     }
     paths = {"mha": "serve qwen3-14b", "wkv6": "serve rwkv6-3b",
-             "pchase": None, "mha_f32": None}
+             "pchase": None,
+             "mha_f32": "qwen3-14b-smoke f32 prefill on the card"}
     kernels = []
     for name, row in rows.items():
         route, source = sources.get(

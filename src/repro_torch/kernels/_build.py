@@ -20,7 +20,7 @@ from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from pathlib import Path
 
-__all__ = ["BuildInfo", "load_library", "check_launch", "raw_stream"]
+__all__ = ["BuildInfo", "load_library", "check_launch"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -117,15 +117,6 @@ def load_library() -> tuple[ctypes.CDLL, BuildInfo]:
                 fn.argtypes, fn.restype = argtypes, restype
             _loaded = (lib, info)
         return _loaded
-
-
-def raw_stream(device) -> int:
-    """The current CUDA stream of ``device`` as the integer a C entry point
-    takes: ``torch.cuda.current_stream(device).cuda_stream`` without
-    building a ``Stream`` object on every launch."""
-    import torch
-
-    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def check_launch(lib: ctypes.CDLL, name: str, err: int) -> None:

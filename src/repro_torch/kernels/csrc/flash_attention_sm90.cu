@@ -56,17 +56,15 @@
 //   unit.  TMA writes no row at or past Sq (the zero-filled half of a
 //   64-row tail).
 //
-// The C entry point builds the tensor maps on the host
+// The C entry point builds the four tensor maps on the host on every call
 // (cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint, so the
-// library links no driver library; the last few maps are kept for calls on
-// the same tensors), launches on the given stream, does not
+// library links no driver library), launches on the given stream, does not
 // synchronise, and returns cudaGetLastError() (cudaErrorInvalidValue for a
 // shape it does not take).
 
 #include <climits>
 #include <cmath>
 #include <cstdint>
-#include <mutex>
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -609,49 +607,14 @@ bool make_map(CUtensorMap* map, const void* ptr, int d, int heads, int seq,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// The last kCachedMaps maps built, by everything that decides them.
-// Encoding one costs about as much host time as the launch itself, and a
-// call whose tensors sit where an earlier call's did (the caching
-// allocator's usual case) needs the same maps again.
-constexpr int kCachedMaps = 16;
-
-struct MapKey {
-  const void* ptr;
-  int d, heads, seq, batch, rows;
-  bool operator==(const MapKey& o) const {
-    return ptr == o.ptr && d == o.d && heads == o.heads && seq == o.seq &&
-           batch == o.batch && rows == o.rows;
-  }
-};
-
-bool cached_map(CUtensorMap* map, const MapKey& key) {
-  static std::mutex lock;
-  static MapKey keys[kCachedMaps] = {};
-  static CUtensorMap maps[kCachedMaps];
-  static int next = 0;
-  const std::lock_guard<std::mutex> hold_lock(lock);
-  for (int i = 0; i < kCachedMaps; ++i)
-    if (keys[i].ptr != nullptr && keys[i] == key) {
-      *map = maps[i];
-      return true;
-    }
-  if (!make_map(map, key.ptr, key.d, key.heads, key.seq, key.batch,
-                key.rows))
-    return false;
-  keys[next] = key;
-  maps[next] = *map;
-  next = (next + 1) % kCachedMaps;
-  return true;
-}
-
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int b,
            int hq, int hkv, int sq, int sk, int causal, cudaStream_t stream) {
   CUtensorMap mq, mk, mv, mo;
-  if (!cached_map(&mq, {q, D, hq, sq, b, kBM}) ||
-      !cached_map(&mk, {k, D, hkv, sk, b, kBN}) ||
-      !cached_map(&mv, {v, D, hkv, sk, b, kBN}) ||
-      !cached_map(&mo, {o, D, hq, sq, b, kBM / 2}))
+  if (!make_map(&mq, q, D, hq, sq, b, kBM) ||
+      !make_map(&mk, k, D, hkv, sk, b, kBN) ||
+      !make_map(&mv, v, D, hkv, sk, b, kBN) ||
+      !make_map(&mo, o, D, hq, sq, b, kBM / 2))
     return static_cast<int>(cudaErrorInvalidValue);
   constexpr int smem = Layout<D>::kBytes;
   // per device, set once: the shared-memory opt-in and the SM count

@@ -29,19 +29,24 @@ import math
 
 import torch
 
-from ._build import check_launch, load_library, raw_stream
+from ._build import check_launch, load_library
 
-__all__ = ["BLOCK", "HEAD_DIMS", "SM90_HEAD_DIMS", "NEG_INF", "SOURCES",
-           "kernel_for", "flash_attention_kernel", "flash_attention_plain"]
+__all__ = ["BLOCK", "HEAD_DIMS", "SM90_HEAD_DIMS", "SM90_TILE", "NEG_INF",
+           "SOURCES", "LAUNCHES", "kernel_for", "flash_attention_kernel",
+           "flash_attention_plain", "flash_attention_sm90_plain"]
 
 BLOCK = 64                      # kBlock of csrc/flash_attention.cu
 HEAD_DIMS = (16, 32, 64, 128, 256)
 SM90_HEAD_DIMS = (64, 128)      # instantiated in csrc/flash_attention_sm90.cu
+SM90_TILE = 128                 # kBN of csrc/flash_attention_sm90.cu
 NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # kernel_for's answer -> the source of that kernel, under kernels/
 SOURCES = {"sm90": "csrc/flash_attention_sm90.cu",
            "cuda_core": "csrc/flash_attention.cu"}
+# Launches of each kernel, raised where it is launched (``ops.mha`` counts
+# its calls, whichever kernel they take); ``ops.reset_launches`` zeroes them.
+LAUNCHES = {name: 0 for name in SOURCES}
 
 
 def kernel_for(dtype: torch.dtype, d: int) -> str:
@@ -61,17 +66,19 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
-    stream = raw_stream(q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     if kernel_for(q.dtype, d) == "sm90":
         check_launch(lib, "flash_attention_sm90_fwd",
                      lib.flash_attention_sm90_fwd(
                          q.data_ptr(), k.data_ptr(), v.data_ptr(),
                          out.data_ptr(), b, hq, hkv, sq, sk, d, int(causal),
                          stream))
+        LAUNCHES["sm90"] += 1
     else:
         check_launch(lib, "flash_attention_fwd", lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq,
             hkv, sq, sk, d, int(causal), _DTYPE_CODES[q.dtype], stream))
+        LAUNCHES["cuda_core"] += 1
     return out
 
 
@@ -91,3 +98,35 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
     return out.reshape(b, sq, hq, d).to(q.dtype)
+
+
+def flash_attention_sm90_plain(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, causal: bool) -> torch.Tensor:
+    """The tensor-core kernel's numerics in plain PyTorch: float32 scores, an
+    online softmax over ``SM90_TILE``-key tiles in the log2 domain, the
+    unnormalised probabilities rounded to bfloat16 for P.V (their sum taken
+    before rounding), the output divided by that sum and rounded to q's
+    dtype.  The same inputs and layout as ``flash_attention_plain``."""
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    c = math.log2(math.e) / math.sqrt(d)
+    qf = q.float().transpose(1, 2)                            # (B, Hq, Sq, d)
+    kf, vf = (x.float().transpose(1, 2).repeat_interleave(hq // hkv, dim=1)
+              for x in (k, v))                                # (B, Hq, Sk, d)
+    m = torch.full((b, hq, sq, 1), -math.inf, device=q.device)
+    l = torch.zeros((b, hq, sq, 1), device=q.device)
+    acc = torch.zeros((b, hq, sq, d), device=q.device)
+    rows = torch.arange(sq, device=q.device)[:, None]
+    for n0 in range(0, sk, SM90_TILE):
+        sc = qf @ kf[:, :, n0:n0 + SM90_TILE].transpose(-1, -2)
+        if causal:
+            cols = n0 + torch.arange(sc.shape[-1], device=q.device)[None, :]
+            sc = sc.masked_fill(cols > rows, -math.inf)
+        m_new = torch.maximum(m, sc.amax(-1, keepdim=True) * c)
+        mu = m_new.nan_to_num(neginf=0.0)
+        alpha = torch.exp2(m - mu)
+        p = torch.exp2(sc * c - mu)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + p.bfloat16().float() @ vf[:, :, n0:n0 + SM90_TILE]
+        m = m_new
+    return (acc / l).transpose(1, 2).to(q.dtype).contiguous()

@@ -16,8 +16,8 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from .flash_attention import (BLOCK, HEAD_DIMS, flash_attention_kernel,
-                              flash_attention_plain)
+from .flash_attention import (BLOCK, HEAD_DIMS, LAUNCHES,
+                              flash_attention_kernel, flash_attention_plain)
 from .pchase_probe import (eviction_batch_plain, eviction_kernel_batch,
                            pchase_batch_plain, pchase_kernel,
                            pchase_kernel_batch, pchase_plain)
@@ -45,8 +45,7 @@ def _check(name: str, t, dtype, ndim: int, device: torch.device) -> None:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
-    n = t.numel()
-    if (n > _INT_MAX or n == 0) and max(t.shape, default=0) > _INT_MAX:
+    if any(s > _INT_MAX for s in t.shape):
         raise ValueError(f"{name}: dimension beyond int32 range")
 
 
@@ -218,6 +217,9 @@ LLM_WRAPPERS = (mha, wkv6, pchase)
 
 
 def reset_launches() -> None:
-    """Zero every wrapper's ``launches`` count."""
+    """Zero every wrapper's ``launches`` count and the attention kernels'
+    own counts (``flash_attention.LAUNCHES``)."""
     for fn in WRAPPERS + LLM_WRAPPERS:
         fn.launches = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0

@@ -29,7 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ._build import check_launch, load_library, raw_stream
+from ._build import check_launch, load_library
 
 __all__ = ["pchase_kernel", "pchase_kernel_batch", "eviction_kernel_batch",
            "pchase_plain", "pchase_batch_plain", "eviction_batch_plain",
@@ -43,7 +43,7 @@ def pchase_kernel_batch(perms: torch.Tensor,
     lib, _ = load_library()
     rows, n = perms.shape
     out = torch.empty((rows, 2), dtype=torch.int32, device=perms.device)
-    stream = raw_stream(perms.device)
+    stream = torch.cuda.current_stream(perms.device).cuda_stream
     check_launch(lib, "pchase_batch", lib.pchase_batch(
         perms.data_ptr(), steps.data_ptr(), out.data_ptr(), rows, n, stream))
     return out
@@ -66,7 +66,7 @@ def eviction_kernel_batch(perms: torch.Tensor, evictors: torch.Tensor,
     rows, n = perms.shape
     m = evictors.shape[1]
     out = torch.empty((rows, 2), dtype=torch.int32, device=perms.device)
-    stream = raw_stream(perms.device)
+    stream = torch.cuda.current_stream(perms.device).cuda_stream
     check_launch(lib, "eviction_batch", lib.eviction_batch(
         perms.data_ptr(), evictors.data_ptr(), warm.data_ptr(),
         probe.data_ptr(), out.data_ptr(), rows, n, m, stream))

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from ._build import check_launch, load_library, raw_stream
+from ._build import check_launch, load_library
 
 __all__ = ["wkv6_kernel", "wkv6_plain", "chunked_scan"]
 
@@ -32,7 +32,7 @@ def wkv6_kernel(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     vd = v.shape[-1]
     y = torch.empty((b, t, h, vd), dtype=torch.float32, device=r.device)
     state = torch.empty((b, h, kd, vd), dtype=torch.float32, device=r.device)
-    stream = raw_stream(r.device)
+    stream = torch.cuda.current_stream(r.device).cuda_stream
     check_launch(lib, "wkv6_fwd", lib.wkv6_fwd(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
         y.data_ptr(), state.data_ptr(), b, t, h, kd, vd, chunk, stream))

@@ -28,7 +28,7 @@ import functools
 
 import torch
 
-from ._build import check_launch, load_library, raw_stream
+from ._build import check_launch, load_library
 
 __all__ = ["stream_read_kernel", "stream_write_kernel", "stream_read_plain",
            "stream_write_plain", "READ_SLICE", "WRITE_TILE"]
@@ -81,7 +81,8 @@ def stream_read_kernel(x: torch.Tensor, block: int) -> torch.Tensor:
     # one allocation: the block sums, then each slice's partial sum
     buf = torch.empty(blocks * (1 + -(-block // READ_SLICE)),
                       dtype=torch.float32, device=x.device)
-    sums, stream = buf.data_ptr(), raw_stream(x.device)
+    sums = buf.data_ptr()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     check_launch(lib, "stream_read_fwd", lib.stream_read_fwd(
         x.data_ptr(), sums, sums + 4 * blocks,
         _block_counters(x.device, stream, blocks).data_ptr(), n, block,

@@ -22,7 +22,9 @@ Tolerances:
 * the tensor-core kernel's bf16 probabilities, emulated here:
   rtol 2**-7, atol 2**-8 max|v| against the float32 plain version, the
   tolerance ``chip_smoke.py`` holds that kernel to on the card (its
-  reasoning is beside ``ATTN_TOL`` there).
+  reasoning is beside ``ATTN_TOL`` there); ``flash_attention_sm90_plain``,
+  the emulation the card also holds the kernel to, against the one here:
+  one bf16 ulp (2**-7) and 2**-10 max|v|.
 """
 import math
 import pathlib
@@ -190,6 +192,45 @@ def test_bf16_probability_rounding_stays_within_the_stated_tolerance(causal):
     assert float(diff.max()) > 0          # the rounding does move outputs
     assert bool((diff <= 2 ** -7 * want.abs() + atol).all()), \
         float((diff - 2 ** -7 * want.abs()).max())
+
+
+@pytest.mark.parametrize("hq,hkv,s,causal", [
+    (4, 2, 512, True), (4, 2, 448, True), (2, 1, 256, False)],
+    ids=["gqa-causal-S512", "gqa-causal-S448", "gqa-full-S256"])
+def test_sm90_plain_matches_the_tiled_emulation(hq, hkv, s, causal):
+    """``flash_attention_sm90_plain``, which ``chip_smoke.py`` holds the
+    tensor-core kernel to on the card, is the emulation above with the kv
+    heads shared by their query groups and a last key tile that may be
+    short: within one bf16 ulp (2**-7) and 2**-10 max|v|."""
+    rng = np.random.default_rng(s + hq)
+    q = torch.from_numpy(rng.standard_normal((1, s, hq, 128),
+                                             dtype=np.float32)).bfloat16()
+    k, v = (torch.from_numpy(rng.standard_normal((1, s, hkv, 128),
+                                                 dtype=np.float32))
+            .bfloat16() for _ in range(2))
+    got = fa.flash_attention_sm90_plain(q, k, v, causal)
+    want = _tiled_bf16_probabilities(
+        q.float(), *(x.float().repeat_interleave(hq // hkv, dim=2)
+                     for x in (k, v)), causal)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    atol = 2 ** -10 * float(v.float().abs().max())
+    diff = (got.float() - want.float()).abs()
+    assert bool((diff <= 2 ** -7 * want.float().abs() + atol).all())
+
+
+def test_attention_kernel_counts_rise_only_where_a_kernel_launches():
+    """On the CPU ``ops.mha`` counts its calls but launches no kernel, so
+    neither kernel's own count moves; ``reset_launches`` zeroes them."""
+    ops.reset_launches()
+    assert fa.LAUNCHES == {"sm90": 0, "cuda_core": 0}
+    for dtype in ("bfloat16", np.float32):
+        _, (q, k, v) = _attn_inputs(1, 2, 1, 64, 64, 128, dtype, seed=1)
+        ops.mha(q, k, v)
+    assert ops.mha.launches == 2
+    assert fa.LAUNCHES == {"sm90": 0, "cuda_core": 0}
+    fa.LAUNCHES.update(sm90=3, cuda_core=1)
+    ops.reset_launches()
+    assert fa.LAUNCHES == {"sm90": 0, "cuda_core": 0}
 
 
 def _wkv_inputs(b, t, h, kd, vd, seed):
