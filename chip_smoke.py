@@ -8,25 +8,29 @@ Phases, each of which stops the run on failure (no fallback to the CPU or
 to a plain version):
 
 1. build   — ``nvcc`` builds ``src/repro_torch/kernels/csrc/*.cu`` (the
-             chase, stream-read, both flash-attention and the WKV6 sources,
-             one compiler each, all at once) into ``build/kernels/`` while
-             the Triton write kernel compiles; prints each source's compile
-             time and ptxas's registers, and checks that the SASS of the
-             tensor-core attention kernel holds wgmma (HGMMA) and TMA loads;
+             chase, stream, both flash-attention and the WKV6 sources, one
+             compiler each, all at once) into ``build/kernels/``; prints
+             each source's compile time and ptxas's registers and spills,
+             and checks that every instantiation of the tensor-core
+             attention kernel spills nothing and that the SASS of each
+             (d 256's on its own) holds wgmma (HGMMA) and TMA loads;
 2. kernels — each probe kernel, at the shapes discovery gives it, against
              its plain PyTorch version on the card (bit-exact for the chase,
              eviction and write kernels; rtol 1e-5 for the read kernel,
              whose summation order differs, at 2 MiB and at blocks of
-             1001), with CUDA-event times and, for the read kernel and
-             ``torch.sum``, the device time from ``torch.profiler``;
+             1001), with CUDA-event times and, for the stream kernels,
+             ``torch.sum`` and ``torch.add``, the device time from
+             ``torch.profiler`` and the host time of each piece of the
+             launch path;
 3. discover — ``discover_cuda()`` with its defaults on the card, its
              discrete attributes held to ``make_cuda_model().ground_truth()``
              and every probe kernel's launch count, read around this phase
              alone, above zero;
 4. llm kernels — ``ops.mha`` (the tensor-core kernel for bf16 at head
-             dims 64 and 128, the CUDA-core one for f32 and bf16 at head
-             dim 256), ``ops.wkv6`` and ``ops.pchase`` at the shapes the
-             serve phase gives them, against their plain versions
+             dims 64, 128 and 256, the CUDA-core one for f32 and bf16 at
+             head dim 32), ``ops.wkv6`` and ``ops.pchase`` at the shapes the
+             serve phase gives them (and attention at head dim 256 also at
+             paligemma-3b's head layout), against their plain versions
              (tolerances at each check; the tensor-core kernel also against
              the plain emulation of its own numerics), with CUDA-event
              times, bounds and, for attention,
@@ -55,10 +59,10 @@ is no CUDA device or the port's sources are missing.
 import gc
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
-import threading
 import time
 
 import numpy as np
@@ -101,22 +105,45 @@ def event_ms(fn, reps: int = REPS) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int = REPS) -> float:
-    """Device time of one call of ``fn``: the sum of the kernels and copies
-    ``torch.profiler`` sees over ``reps`` calls, after a warm-up, over
-    ``reps``.  Host overhead between launches is left out."""
-    from torch.profiler import ProfilerActivity, profile
+def device_ms(fns: dict, reps: int = REPS) -> dict:
+    """Device time of one call of each function of ``fns`` (by label): the
+    sum of the kernels and copies ``torch.profiler`` sees start inside the
+    label's span (``reps`` calls, after a warm-up, and a synchronise), over
+    ``reps``.  Host overhead between launches is left out.  A short tail of
+    other device work closes the session: in sessions without it the last
+    function's device events were missing at times."""
+    from torch.profiler import ProfilerActivity, profile, record_function
 
-    fn()
+    for fn in fns.values():
+        fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for label, fn in fns.items():
+            with record_function(f"device_ms:{label}"):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+        tail = torch.zeros(1, device="cuda")
         for _ in range(reps):
-            fn()
+            tail += 1
         torch.cuda.synchronize()
-    busy = [e.time_range.elapsed_us() for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    check(busy, "the profiler saw no device work")
-    return sum(busy) / reps / 1e3
+        time.sleep(0.05)
+    events = prof.events()
+    out = {}
+    for label in fns:
+        spans = [(e.time_range.start, e.time_range.end) for e in events
+                 if e.name == f"device_ms:{label}"
+                 and e.device_type == torch.autograd.DeviceType.CPU]
+        check(len(spans) == 1, f"device_ms: {len(spans)} spans of {label}")
+        lo, hi = spans[0]
+        busy = [e.time_range.elapsed_us() for e in events
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and not e.is_user_annotation
+                and lo <= e.time_range.start < hi]
+        check(busy, f"the profiler saw no device work of {label}")
+        out[label] = sum(busy) / reps / 1e3
+    return out
 
 
 def bound_ms(nbytes: float, ops: float,
@@ -149,43 +176,56 @@ def _sass_counts(lib_path, kernel: str) -> dict:
     return counts
 
 
+def _ptxas_functions(log: str) -> dict:
+    """Registers and spill bytes of each entry function, from ptxas -v."""
+    funcs, name = {}, None
+    for line in log.splitlines():
+        found = re.search(r"(?:Compiling entry function '|Function "
+                          r"properties for )([\w.$]+)", line)
+        if found:
+            name = found.group(1)
+            funcs.setdefault(name, {})
+            continue
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                           r"loads", line)
+        regs = re.search(r"Used (\d+) registers", line)
+        if name and spills:
+            funcs[name]["spill_bytes"] = int(spills[1]) + int(spills[2])
+        if name and regs:
+            funcs[name]["registers"] = int(regs[1])
+    return funcs
+
+
+# the tensor-core attention kernel's instantiation at each head dim, as its
+# mangled name spells it
+SM90_KERNELS = {d: f"flash_fwd_sm90_kernelILi{d}E" for d in (64, 128, 256)}
+
+
 def phase_build() -> None:
-    from repro_torch.kernels import ops
     from repro_torch.kernels._build import load_library
 
-    result = {}
-
-    def nvcc():
-        try:
-            result["lib"] = load_library()
-        except Exception as exc:          # re-raised on the main thread
-            result["error"] = exc
-
     t0 = time.perf_counter()
-    worker = threading.Thread(target=nvcc)
-    worker.start()
-    x = torch.zeros(BLOCK, dtype=torch.float32, device="cuda")
-    ops.stream_write(x)                  # the Triton kernel compiles meanwhile
-    torch.cuda.synchronize()
-    triton_s = time.perf_counter() - t0
-    worker.join()
-    if "error" in result:
-        raise result["error"]
-    _, info = result["lib"]
+    _, info = load_library()
     print(f"[build] nvcc {info.seconds:.2f}s -> {info.path.name}; "
-          f"triton {triton_s:.2f}s; total {time.perf_counter() - t0:.2f}s")
+          f"total {time.perf_counter() - t0:.2f}s")
     print("[build] nvcc per source, compiled at once: "
           + ", ".join(f"{name} {sec:.2f}s" for name, sec in
                       info.per_source.items())
           + f"; their sum {sum(info.per_source.values()):.2f}s")
-    for line in info.log.splitlines():
-        if ("registers" in line or "spill" in line
-                or "Compiling entry function" in line):
-            print(f"[build] {line.strip()}")
-    sass = _sass_counts(info.path, "flash_fwd_sm90_kernel")
-    print(f"[build] SASS of flash_fwd_sm90_kernel: {sass}")
-    check(sass["functions"] > 0 and sass["HGMMA"] > 0 and sass["UTMALDG"] > 0,
-          f"flash_fwd_sm90_kernel lacks wgmma or TMA loads: {sass}")
+    funcs = _ptxas_functions(info.log)
+    for name, props in funcs.items():
+        print(f"[build] {name}: {props}")
+    for d, kernel in SM90_KERNELS.items():
+        mine = [props for name, props in funcs.items() if kernel in name]
+        check(len(mine) == 1 and mine[0].get("spill_bytes") == 0,
+              f"flash_fwd_sm90_kernel<{d}>: ptxas reports {mine}, not one "
+              f"function without spills")
+        sass = _sass_counts(info.path, kernel)
+        print(f"[build] flash_fwd_sm90_kernel<{d}>: {mine[0]['registers']} "
+              f"registers, {mine[0]['spill_bytes']} spill bytes; SASS {sass}")
+        check(sass["functions"] == 1 and sass["HGMMA"] > 0
+              and sass["UTMALDG"] > 0,
+              f"flash_fwd_sm90_kernel<{d}> lacks wgmma or TMA loads: {sass}")
 
 
 # --------------------------------------------------------------------------
@@ -217,7 +257,8 @@ def phase_kernels(rng) -> dict:
     from repro_torch.kernels.pchase_probe import (eviction_batch_plain,
                                                   pchase_batch_plain,
                                                   pchase_reference)
-    from repro_torch.kernels.stream_probe import (stream_read_plain,
+    from repro_torch.kernels.stream_probe import (READ_SLICE, WRITE_SLICE,
+                                                  stream_read_plain,
                                                   stream_write_plain)
 
     rows = {}
@@ -314,39 +355,113 @@ def phase_kernels(rng) -> dict:
     def read():
         return ops.stream_read(x, block=BLOCK)
 
-    def library():
+    def sum_():
         return torch.sum(x.view(-1, BLOCK), dim=1)
 
-    k_ms = event_ms(read)
-    p_ms = event_ms(lambda: stream_read_plain(x, BLOCK))
-    l_ms = event_ms(library)
-    k_dev, l_dev = device_ms(read), device_ms(library)
-    b_ms, b_by = bound_ms(4 * n + 4 * (n // BLOCK), n)
-    print(f"[kernel] stream_read {shape}: rtol 1e-5 ok "
-          f"(max_abs_err={errs[BLOCK]:g}); equal in two calls; "
-          f"kernel_ms={k_ms:.4f} (device {k_dev:.4f}) "
-          f"bound_ms={b_ms:.6f} ({b_by}) plain_ms={p_ms:.4f} "
-          f"library_ms={l_ms:.4f} (torch.sum; device {l_dev:.4f})")
-    rows["stream_read"] = dict(shape=shape, ms=k_ms, plain_ms=p_ms,
-                               bound_ms=b_ms, bound_by=b_by, library_ms=l_ms,
-                               max_abs_err=max(errs.values()), device_ms=k_dev,
-                               library_device_ms=l_dev)
+    def write():
+        return ops.stream_write(x, block=BLOCK)
 
-    got = ops.stream_write(x)
-    torch.cuda.synchronize()
-    want = stream_write_plain(x)
-    check(torch.equal(got, want), "stream_write: differs")
-    k_ms = event_ms(lambda: ops.stream_write(x))
-    p_ms = event_ms(lambda: stream_write_plain(x))
-    l_ms = event_ms(lambda: torch.add(x, 1))
-    b_ms, b_by = bound_ms(8 * n, n)
-    print(f"[kernel] stream_write {shape}: exact; kernel_ms={k_ms:.4f} "
-          f"bound_ms={b_ms:.6f} ({b_by}) plain_ms={p_ms:.4f} "
-          f"library_ms={l_ms:.4f}")
-    rows["stream_write"] = dict(shape=shape, ms=k_ms, plain_ms=p_ms,
-                                bound_ms=b_ms, bound_by=b_by, library_ms=l_ms,
-                                max_abs_err=float((got - want).abs().max()))
+    def add():
+        return torch.add(x, 1)
+
+    # the write bit-exact on discovery's 2 MiB, on a tail that is not a
+    # whole slice, and on a view that starts off a 16-byte boundary (every
+    # element then a scalar)
+    for xs, block in ((x, BLOCK), (x[:3 * 1001], 1001), (x[1:3004], 1001)):
+        got = ops.stream_write(xs, block=block)
+        torch.cuda.synchronize()
+        check(torch.equal(got, stream_write_plain(xs)),
+              f"stream_write N={xs.shape[0]}: differs from x + 1")
+    for name, kernel, plain, library, nbytes, lib_name, ctas in (
+            ("stream_read", read, lambda: stream_read_plain(x, BLOCK), sum_,
+             4 * n + 4 * (n // BLOCK), "torch.sum",
+             n // BLOCK * -(-BLOCK // READ_SLICE)),
+            ("stream_write", write, lambda: stream_write_plain(x), add,
+             8 * n, "torch.add", -(-n // WRITE_SLICE))):
+        k_ms = event_ms(kernel)
+        p_ms = event_ms(plain)
+        l_ms = event_ms(library)
+        dev = device_ms({"kernel": kernel, "library": library})
+        k_dev, l_dev = dev["kernel"], dev["library"]
+        b_ms, b_by = bound_ms(nbytes, n)
+        err = (max(errs.values()) if name == "stream_read" else
+               float((write() - stream_write_plain(x)).abs().max()))
+        exact = ("rtol 1e-5 ok (max_abs_err={err:g}); equal in two calls"
+                 if name == "stream_read" else "bit-exact").format(err=err)
+        print(f"[kernel] {name} {shape} ({ctas} CTAs): {exact}; "
+              f"kernel_ms={k_ms:.4f} (device {k_dev:.4f}) bound_ms={b_ms:.6f} "
+              f"({b_by}) plain_ms={p_ms:.4f} library_ms={l_ms:.4f} "
+              f"({lib_name}; device {l_dev:.4f})")
+        rows[name] = dict(shape=shape, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                          bound_by=b_by, library_ms=l_ms, max_abs_err=err,
+                          device_ms=k_dev, library_device_ms=l_dev)
+    _stream_host_path(x)
     return rows
+
+
+HOST_CALLS = 1000                # host-only calls per piece of a launch path
+
+
+def host_us(fn, calls: int = HOST_CALLS) -> float:
+    """Median host time of one call of ``fn``, in microseconds, over
+    ``calls`` calls each timed with ``perf_counter_ns`` (launches queue on
+    the device meanwhile; it is synchronised after the last)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter_ns()
+        fn()
+        times.append(time.perf_counter_ns() - t0)
+    torch.cuda.synchronize()
+    return statistics.median(times) / 1e3
+
+
+def _stream_host_path(x) -> None:
+    """The host time of each piece of the stream kernels' launch path, the
+    pieces the shared path dropped (a lock around the library, a Stream
+    object, a second buffer and its slice) beside those it kept."""
+    from repro_torch.kernels import ops, stream_probe
+    from repro_torch.kernels._build import load_library
+
+    read, write = stream_probe._entry_points()
+    dev = x.get_device()
+    raw = torch._C._cuda_getCurrentRawStream(dev)
+    blocks = x.shape[0] // BLOCK
+    sums = x.new_empty(blocks)
+    partial, counters = stream_probe._read_scratch(
+        x, dev, raw, blocks * BLOCK // stream_probe.READ_SLICE, blocks)
+    y = torch.empty_like(x)
+    args = (x.data_ptr(), sums.data_ptr(), partial.data_ptr(),
+            counters.data_ptr(), x.shape[0], BLOCK, raw)
+    pieces = {
+        "ops.stream_read": lambda: ops.stream_read(x, block=BLOCK),
+        "stream_read_kernel": lambda: stream_probe.stream_read_kernel(
+            x, BLOCK),
+        "ops.stream_write": lambda: ops.stream_write(x, block=BLOCK),
+        "stream_write_kernel": lambda: stream_probe.stream_write_kernel(x),
+        "torch.sum": lambda: torch.sum(x.view(-1, BLOCK), dim=1),
+        "torch.add": lambda: torch.add(x, 1),
+        "checks": lambda: ops._check_stream(x, BLOCK),
+        "load_library (dropped)": load_library,
+        "current_stream().cuda_stream (dropped)":
+            lambda: torch.cuda.current_stream(x.device).cuda_stream,
+        "raw stream": lambda: torch._C._cuda_getCurrentRawStream(
+            x.get_device()),
+        "new_empty(blocks)": lambda: x.new_empty(blocks),
+        "empty(blocks * 33)[:blocks] (dropped)": lambda: torch.empty(
+            blocks * 33, dtype=torch.float32, device=x.device)[:blocks],
+        "empty_like(x)": lambda: torch.empty_like(x),
+        "read scratch lookup": lambda: stream_probe._read_scratch(
+            x, dev, raw, blocks * BLOCK // stream_probe.READ_SLICE, blocks),
+        "read ctypes launch": lambda: read(*args),
+        "write ctypes launch": lambda: write(x.data_ptr(), y.data_ptr(),
+                                             x.shape[0], raw),
+    }
+    times = {name: host_us(fn) for name, fn in pieces.items()}
+    print("[kernel] stream launch path, host us a call (median of "
+          f"{HOST_CALLS}): " + "; ".join(f"{name} {us:.2f}"
+                                         for name, us in times.items()))
 
 
 # --------------------------------------------------------------------------
@@ -400,6 +515,12 @@ def phase_discover() -> dict:
           f"{gt['L1']['amount']}; not held: the reference misses it too)")
     for name, count in launches.items():
         check(count > 0, f"{name}: no launch during discovery")
+    print("[discover] bandwidth (GB/s, one launch's host wall at 2 MiB): "
+          + "; ".join(f"{name} read {me.get('read_bw')} write "
+                      f"{me.get('write_bw')}" for name, me in (
+                          ("L2", topo.find_memory("L2")),
+                          ("DeviceMemory", topo.find_memory("DeviceMemory")))
+                      if me is not None))
     return launches
 
 
@@ -432,6 +553,9 @@ WKV = dict(b=4, t=512, h=40, k=64, chunk=32)
 #   2**-20 of themselves, B 2, Hq 20, S 512, put the worst excess over
 #   2**-7 |want| at 2**-11.9 max|v|).  A late causal row's outputs are about
 #   0.05 at N(0, 1) inputs, so an error of a tenth of one of them fails.
+# * sm90 at head dim 256 the same: its 64-key tiles change where the
+#   softmax rescales, not how p is rounded, and the emulation follows the
+#   tile (SM90_TILES).
 # * cuda_core, bf16 (head dims the tensor-core kernel does not take): p
 #   stays f32, so the output's one bf16 rounding and a small atol.
 # * cuda_core, f32: the online and the dense softmax sum in other orders.
@@ -441,18 +565,25 @@ ATTN_TOL = {("sm90", torch.bfloat16): (2 ** -7, 2 ** -8),
 ATTN_ATOL_SCALES_WITH_V = {"sm90": True, "cuda_core": False}
 SM90_EMULATION_TOL = (2 ** -7, 2 ** -10)       # atol in units of max|v|
 OLD_BF16_ATOL = 2e-3
-# (dtype, sequence length, causal, head dim): the serving shape in bf16 and
-# f32, a ragged prompt (padded by ops.mha), full attention, a length that is
-# a multiple of 64 but not of 128 (the tensor-core kernel's half-empty query
-# tile), head dim 64, and bf16 at head dim 256 (the CUDA-core kernel).
-ATTN_CASES = ((torch.bfloat16, 512, True, 128),
-              (torch.float32, 512, True, 128),
-              (torch.bfloat16, 500, True, 128),
-              (torch.float32, 500, True, 128),
-              (torch.bfloat16, 512, False, 128),
-              (torch.bfloat16, 448, True, 128),
-              (torch.bfloat16, 512, True, 64),
-              (torch.bfloat16, 512, True, 256))
+# (dtype, sequence length, causal, head dim, query heads, kv heads): the
+# serving shape in bf16 and f32, a ragged prompt (padded by ops.mha), full
+# attention, a length that is a multiple of 64 but not of 128 (the
+# tensor-core kernel's half-empty query tile), head dim 64, bf16 at head
+# dim 256 (the tensor-core kernel's 64-key tiles) at the serving heads and
+# at paligemma-3b's (8 query heads on 1 kv head: 128 units for 132 SMs),
+# and bf16 at head dim 32 (the CUDA-core kernel in bf16).
+SERVE_HEADS = (ATTN["hq"], ATTN["hkv"])
+PALIGEMMA_HEADS = (8, 1)
+ATTN_CASES = ((torch.bfloat16, 512, True, 128, *SERVE_HEADS),
+              (torch.float32, 512, True, 128, *SERVE_HEADS),
+              (torch.bfloat16, 500, True, 128, *SERVE_HEADS),
+              (torch.float32, 500, True, 128, *SERVE_HEADS),
+              (torch.bfloat16, 512, False, 128, *SERVE_HEADS),
+              (torch.bfloat16, 448, True, 128, *SERVE_HEADS),
+              (torch.bfloat16, 512, True, 64, *SERVE_HEADS),
+              (torch.bfloat16, 512, True, 256, *SERVE_HEADS),
+              (torch.bfloat16, 512, True, 256, *PALIGEMMA_HEADS),
+              (torch.bfloat16, 512, True, 32, *SERVE_HEADS))
 # WKV6 in f32: 64-term dot products and 32-step chunk sums in other
 # orders; errors scale with the largest output.
 WKV_RTOL = 1e-4
@@ -498,8 +629,8 @@ def phase_llm_kernels() -> dict:
     def randn(*shape, dtype=torch.float32):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
-    b, hq, hkv = (ATTN[x] for x in ("b", "hq", "hkv"))
-    for dtype, seq, causal, d in ATTN_CASES:
+    b = ATTN["b"]
+    for dtype, seq, causal, d, hq, hkv in ATTN_CASES:
         q = randn(b, seq, hq, d, dtype=dtype)
         k, v = (randn(b, seq, hkv, d, dtype=dtype) for _ in range(2))
         got = ops.mha(q, k, v, causal=causal)
@@ -560,19 +691,24 @@ def phase_llm_kernels() -> dict:
         row = dict(shape=shape, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
                    bound_by=b_by, library_ms=l_ms, max_abs_err=err,
                    source=SOURCES[route])
-        if seq == ATTN["s"] and causal and d == ATTN["d"]:
-            if dtype == torch.bfloat16:
-                # the main path's kernel: its device time beside SDPA's
-                row["device_ms"] = device_ms(
-                    lambda: ops.mha(q, k, v, causal=causal))
-                row["library_device_ms"] = device_ms(
-                    lambda: F.scaled_dot_product_attention(
-                        qt, kt, vt, is_causal=causal, enable_gqa=True))
-                print(f"[llm] mha {shape}: device_ms={row['device_ms']:.4f} "
-                      f"({n_ops / row['device_ms'] / 1e9:.1f} TFLOP/s); "
-                      f"scaled_dot_product_attention device_ms="
-                      f"{row['library_device_ms']:.4f}")
-            rows["mha" if dtype == torch.bfloat16 else "mha_f32"] = row
+        if route == "sm90" and seq == ATTN["s"] and causal and d >= 128:
+            # the tensor-core kernel's device time beside SDPA's
+            dev = device_ms({
+                "kernel": lambda: ops.mha(q, k, v, causal=causal),
+                "library": lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal, enable_gqa=True)})
+            row["device_ms"] = dev["kernel"]
+            row["library_device_ms"] = dev["library"]
+            print(f"[llm] mha {shape}: device_ms={row['device_ms']:.4f} "
+                  f"({n_ops / row['device_ms'] / 1e9:.1f} TFLOP/s, "
+                  f"{b_ms / row['device_ms']:.3f} of the bound); "
+                  f"scaled_dot_product_attention device_ms="
+                  f"{row['library_device_ms']:.4f}")
+        if seq == ATTN["s"] and causal and hq == ATTN["hq"] and (
+                d == ATTN["d"] or (d, dtype) == (256, torch.bfloat16)):
+            rows[{(128, torch.bfloat16): "mha", (128, torch.float32):
+                  "mha_f32", (256, torch.bfloat16): "mha_d256"}[
+                      (d, dtype)]] = row
         del q, k, v, qt, kt, vt, got, want, diff
 
     b, h, kd, chunk = (WKV[x] for x in ("b", "h", "k", "chunk"))
@@ -871,6 +1007,7 @@ def main() -> int:
     launches = phase_discover()
     rows.update(phase_llm_kernels())
     launches.update(phase_serve())      # pchase: its serve-run count
+    launches["mha_d256"] = 0            # no served config has head dim 256
     print(f"[smoke] all phases passed in {time.perf_counter() - t0:.1f}s")
 
     replaces = {
@@ -881,6 +1018,7 @@ def main() -> int:
         "pchase": "src/repro/kernels/pchase_probe.py:53",
         "mha": "src/repro/kernels/flash_attention.py:78",
         "mha_f32": "src/repro/kernels/flash_attention.py:78",
+        "mha_d256": "src/repro/kernels/flash_attention.py:78",
         "wkv6": "src/repro/kernels/rwkv6_scan.py:74",
     }
     sources = {
@@ -888,13 +1026,13 @@ def main() -> int:
         "eviction_batch": ("cuda", "src/repro_torch/kernels/csrc/pchase.cu"),
         "stream_read": ("cuda",
                         "src/repro_torch/kernels/csrc/stream_probe.cu"),
-        "stream_write": ("triton",
-                         "src/repro_torch/kernels/stream_probe.py"),
+        "stream_write": ("cuda",
+                         "src/repro_torch/kernels/csrc/stream_probe.cu"),
         "pchase": ("cuda", "src/repro_torch/kernels/csrc/pchase.cu"),
         "wkv6": ("cuda", "src/repro_torch/kernels/csrc/wkv6.cu"),
     }
     paths = {"mha": "serve qwen3-14b", "wkv6": "serve rwkv6-3b",
-             "pchase": None,
+             "pchase": None, "mha_d256": None,
              "mha_f32": "qwen3-14b-smoke f32 prefill on the card"}
     kernels = []
     for name, row in rows.items():

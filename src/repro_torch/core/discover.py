@@ -13,8 +13,8 @@ what is genuinely backend-specific:
 
 * ``discover_sim``  — a ``SimRunner`` over a virtual device with known
   ground truth (the validation backend);
-* ``discover_cuda`` — the ``CudaRunner``: hand-written CUDA and Triton
-  probe kernels (``repro_torch.kernels``) on the card, timed end-to-end
+* ``discover_cuda`` — the ``CudaRunner``: hand-written CUDA C++ probe
+  kernels (``repro_torch.kernels``) on the card, timed end-to-end
   against a configured ground-truth hierarchy.
 
 Both run the dense, unfused engine path.  The options of the reference

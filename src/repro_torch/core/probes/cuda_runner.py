@@ -3,11 +3,10 @@
 The port's counterpart of the reference package's ``PallasRunner``: every
 probe request executes the Hopper kernels of ``repro_torch.kernels`` — the
 CUDA C++ ``pchase_batch`` / ``eviction_batch`` grids for dependent-load
-chains, the CUDA C++ ``stream_read`` and Triton ``stream_write`` kernels for
-bandwidth —
-and the *caller times the whole call* (host clock around the launch plus
-``torch.cuda.synchronize()``; on the CPU, where the plain versions run on
-the calling thread, that thread's CPU clock).
+chains, the CUDA C++ ``stream_read`` and ``stream_write`` kernels for
+bandwidth — and the *caller times the whole call* (host clock around the
+launch plus ``torch.cuda.synchronize()``; on the CPU, where the plain
+versions run on the calling thread, that thread's CPU clock).
 
 The hit/miss behavior comes from a configured ground-truth hierarchy (a
 ``SimDevice`` model, default ``make_cuda_model``): the modeled level an
@@ -504,7 +503,7 @@ class CudaRunner:
                 return ops.stream_read(x, block=block)
         else:
             def fn():
-                return ops.stream_write(x)
+                return ops.stream_write(x, block=block)
         fn()
         self._sync()
         best = np.inf

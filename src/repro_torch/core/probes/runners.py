@@ -4,7 +4,7 @@ The probe *workflows* (size, latency, line size, amount, ...) are runner-
 agnostic — the same code drives:
 
 * ``SimRunner``   — virtual devices with ground truth (validation tables);
-* ``CudaRunner``  — the hand-written CUDA/Triton probe kernels in
+* ``CudaRunner``  — the hand-written CUDA probe kernels in
                     ``repro_torch.kernels``, timed end-to-end on the card
                     against a configured ground-truth hierarchy; lives in
                     ``cuda_runner.py``.

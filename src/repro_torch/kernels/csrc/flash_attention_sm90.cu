@@ -3,9 +3,10 @@
 // Replaces the Pallas kernel of the reference package:
 //   flash_fwd_sm90_kernel <- repro/kernels/flash_attention.py flash_attention
 //                            (pallas_call at :94, body _kernel)
-// for bfloat16 inputs at head dims 64 and 128; every other dtype and head
-// dim runs csrc/flash_attention.cu (CUDA cores).  kernels/flash_attention.py
-// chooses between them by dtype and head dim alone.
+// for bfloat16 inputs at head dims 64, 128 and 256; every other dtype and
+// head dim runs csrc/flash_attention.cu (CUDA cores).
+// kernels/flash_attention.py chooses between them by dtype and head dim
+// alone.
 //
 // What it computes: o = softmax(q k^T / sqrt(d)) v per (batch, query head),
 // query head h reading kv head h / (Hq / Hkv), with the causal mask
@@ -21,7 +22,8 @@
 // causal q.k and p.v products are 10.8 GFLOP, 11 us at 989 TFLOP/s in bf16.
 // Both bounds are a few microseconds per SM, so what decides the time is
 // how soon the tensor cores are fed after a block starts and how little
-// else they wait for.
+// else they wait for.  At d 256 (the same shape) the bytes are 100.7 MB,
+// 30 us, and the products 21.5 GFLOP, 22 us.
 //
 // What the design does about that (FlashAttention-3's shape):
 // * A persistent grid of one block of three warpgroups per SM walks the
@@ -29,32 +31,39 @@
 //   snake order, the longest causal loops in the first round.  Warpgroup 0
 //   is the producer: it gives up its registers (setmaxnreg) and one thread
 //   issues every load, running ahead into the next unit, so a unit's Q, K
-//   and V arrive while the one before it computes.  Warpgroups 1 and 2 are consumers of 64 query rows
-//   each; while one computes its softmax the other's products keep the
-//   tensor cores busy.  (Making them take turns at issuing wgmma, with
-//   named barriers as FlashAttention-3 does, did not help at these shapes.)
+//   and V arrive while the one before it computes.  Warpgroups 1 and 2
+//   are consumers of 64 query rows each; while one computes its softmax
+//   the other's products keep the tensor cores busy.  (Making them take
+//   turns at issuing wgmma, with named barriers as FlashAttention-3 does,
+//   did not help at these shapes.)
 // * The Tensor Memory Accelerator moves the tiles.  q, k and v are mapped
 //   as 4-D tensors (d, H, S, B), so the sequence edge is per batch element
-//   and rows past it arrive as zeros.  A 128-row tile is d / 64 boxes of 64
-//   columns (128 bytes, the 128-byte swizzle span).  K and V tiles of 128
-//   rows pass through a ring of kStages stages, each with a full mbarrier
-//   for K, one for V (Q K^T starts before V lands) and an empty one.  Q,
-//   read once from device memory, is prefetched into L2 one unit ahead.
-//   At d = 128 the block holds Q 32 KB, the ring 2 x (32 + 32) KB and two
-//   16 KB output tiles.
-// * S = Q K^T is wgmma m64n128k16 with both operands in shared memory, K
-//   read K-major as it lies.  The online softmax runs on the accumulator
-//   fragment in registers; a row's max is reduced over the four threads
-//   that hold it, its sum only once at the end.  The causal mask and the
+//   and rows past it arrive as zeros.  A tile is d / 64 boxes of 64
+//   columns (128 bytes, the 128-byte swizzle span).  K and V tiles of
+//   Layout<D>::kBN rows (128; 64 at d 256) pass through a ring of kStages
+//   stages, each with a full mbarrier for K, one for V (Q K^T starts
+//   before V lands) and an empty one.  Q, read once from device memory, is
+//   prefetched into L2 one unit ahead.  At d = 128 the block holds Q 32 KB,
+//   the ring 2 x (32 + 32) KB and two 16 KB output tiles; at d = 256 Q
+//   64 KB, the ring 2 x (32 + 32) KB and two 16 KB output half-tiles,
+//   225 KB of the 227 KB a block may have.
+// * S = Q K^T is wgmma m64nNk16 (N = kBN) with both operands in shared
+//   memory, K read K-major as it lies.  The online softmax runs on the
+//   accumulator fragment in registers; a row's max is reduced over the
+//   four threads that hold it, its sum only once at the end.  The causal mask and the
 //   key edge (keys at or past Sk arrive as zeros, not -inf) are applied
-//   only on tiles that reach the diagonal or the edge.
+//   only on tiles that reach the diagonal or the edge; at 64-key tiles the
+//   first consumer skips the block's last causal tile, which lies wholly
+//   above its rows.
 // * O += P V is wgmma with P converted to bf16 in registers as the A
-//   operand and V read MN-major from shared memory (the transpose flag).
+//   operand and V read MN-major from shared memory (the transpose flag);
+//   at d 256 one m64n256k16 a k16 step, its 128 accumulators a thread
+//   beside S's 32 within the consumers' 240 registers.
 // * The epilogue divides by l and writes bf16 into the consumer's output
 //   tile in shared memory, swizzled as the output's tensor map reads it;
 //   one TMA store per box sends it out while the consumer starts its next
-//   unit.  TMA writes no row at or past Sq (the zero-filled half of a
-//   64-row tail).
+//   unit (at d 256 in two halves through one buffer of two boxes).  TMA
+//   writes no row at or past Sq (the zero-filled half of a 64-row tail).
 //
 // The C entry point builds the four tensor maps on the host on every call
 // (cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint, so the
@@ -72,7 +81,6 @@
 namespace {
 
 constexpr int kBM = 128;          // query rows per block (two warpgroups)
-constexpr int kBN = 128;          // kv rows per tile
 constexpr int kStages = 2;        // K/V ring depth
 constexpr int kThreads = 384;     // producer + two consumer warpgroups
 constexpr int kSpan = 128;        // bytes of one swizzled row: 64 bf16
@@ -232,6 +240,69 @@ __device__ __forceinline__ void wgmma_ss_n128(
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
+// d (64 x 64, f32) += A (64 x 16, shared) * B (16 x 64, shared), both
+// K-major; the sum starts from d when scale_d is 1 and from 0 when it is 0.
+__device__ __forceinline__ void wgmma_ss_n64(
+    float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (64 x 256, f32) += A (64 x 16, bf16 in registers) * B (16 x 256, shared,
+// MN-major: the transpose flag is set), accumulating into d.
+__device__ __forceinline__ void wgmma_rs_n256(
+    float (&d)[128], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
+    uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+}
+
 // d (64 x 128, f32) += A (64 x 16, bf16 in registers) * B (16 x 128, shared,
 // MN-major: the transpose flag is set), accumulating into d.
 __device__ __forceinline__ void wgmma_rs_n128(
@@ -282,19 +353,27 @@ __device__ __forceinline__ void wgmma_rs_n64(
 }
 
 // Shared memory of one block: Q | K0 V0 | K1 V1 ... | O of each consumer |
-// mbarriers.  Each tile is d / 64 boxes of 128 (O: 64) rows x 128 bytes,
-// each box 1024-byte aligned as the 128-byte swizzle requires.
+// mbarriers.  Each tile is d / 64 boxes of kBM (Q), kBN (K, V) or 64 (O)
+// rows x 128 bytes, each box 1024-byte aligned as the 128-byte swizzle
+// requires.  At d 256, 128-row K/V tiles would need 384 KB and an S
+// fragment of 64 registers beside the 128 of O, so K and V come in tiles
+// of 64 rows, and O goes out in two halves of 128 columns through one
+// buffer of two boxes per consumer.
 template <int D>
 struct Layout {
   static constexpr int kBoxes = D / 64;
+  static constexpr int kBN = D > 128 ? 64 : 128;           // K/V rows a tile
+  static constexpr int kOBoxes = kBoxes < 2 ? kBoxes : 2;  // O boxes a half
+  static constexpr int kHalves = kBoxes / kOBoxes;         // O halves
   static constexpr int kQ = kBoxes * kBM * kSpan;          // Q tile bytes
   static constexpr int kTile = kBoxes * kBN * kSpan;       // K or V tile bytes
-  static constexpr int kO = kBoxes * (kBM / 2) * kSpan;    // one consumer's O
+  static constexpr int kO = kOBoxes * (kBM / 2) * kSpan;   // one consumer's O
   static constexpr int kOut = kQ + kStages * 2 * kTile;    // O offset
   static constexpr int kBars = kOut + 2 * kO;              // mbarrier offset
   // full_k, full_v and empty per stage, q_full, q_empty; 1 KB of slack to
   // align the base
   static constexpr int kBytes = kBars + (3 * kStages + 2) * 8 + 1024;
+  static_assert(kBytes <= 232448, "beyond the H100's shared-memory opt-in");
 };
 
 // The mbarriers, by address in shared memory.
@@ -325,6 +404,7 @@ __device__ __forceinline__ int unit_index(int it) {
   return it * gridDim.x + (it & 1 ? gridDim.x - 1 - blockIdx.x : blockIdx.x);
 }
 
+template <int kBN>
 __device__ __forceinline__ Unit unit_of(int w, int n_qt, int hq, int batch,
                                         int sk, int causal) {
   const int per_tile = hq * batch;
@@ -373,6 +453,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                           int hkv, int sq, int sk, int causal,
                           float scale_log2) {
   using L = Layout<D>;
+  constexpr int kBN = L::kBN;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t q_s = base;
@@ -400,7 +481,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (threadIdx.x == 0) {
       int g = 0;                                     // K/V tiles so far
       for (int it = 0; unit_index(it) < units; ++it) {
-        const Unit u = unit_of(unit_index(it), n_qt, hq, batch, sk, causal);
+        const Unit u = unit_of<kBN>(unit_index(it), n_qt, hq, batch, sk, causal);
         const int hk = u.h / group;
         mbar_wait(bar.q_empty(), (it & 1) ^ 1);
         mbar_arrive_expect_tx(bar.q_full(), L::kQ);
@@ -409,8 +490,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                       u.q0, u.b);
         // the next unit's Q, read once from device memory, into L2 now
         if (unit_index(it + 1) < units) {
-          const Unit n = unit_of(unit_index(it + 1), n_qt, hq, batch, sk,
-                                 causal);
+          const Unit n = unit_of<kBN>(unit_index(it + 1), n_qt, hq, batch,
+                                      sk, causal);
           for (int c = 0; c < L::kBoxes; ++c)
             tma_prefetch_4d(&tq, 64 * c, n.h, n.q0, n.b);
         }
@@ -440,7 +521,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
     int g = 0;
     for (int it = 0; unit_index(it) < units; ++it) {
-      const Unit u = unit_of(unit_index(it), n_qt, hq, batch, sk, causal);
+      const Unit u = unit_of<kBN>(unit_index(it), n_qt, hq, batch, sk, causal);
       const int row0 = u.q0 + 64 * cw + 16 * warp + lane / 4;  // +8: odd pairs
       float acc[D / 2];
 #pragma unroll
@@ -454,26 +535,45 @@ __global__ void __launch_bounds__(kThreads, 1)
         const uint32_t k_s = base + L::kQ + st * 2 * L::kTile;
         const uint32_t v_s = k_s + L::kTile;
 
+        const int n0 = j * kBN;
+        if constexpr (kBN < kBM) {
+          // at 64-key tiles the block's last causal tile lies wholly above
+          // the first consumer's rows: it only gives the stage back, after
+          // the stage's load (so its arrival joins that tile's phase)
+          if (causal && n0 > u.q0 + 64 * cw + 63) {
+            mbar_wait(bar.full_k(st), ph);
+            if (t == 0) {
+              if (j == u.n_kt - 1) mbar_arrive(bar.q_empty());
+              mbar_arrive(bar.empty(st));
+            }
+            continue;
+          }
+        }
+
         // S = Q K^T over d in k16 steps; a step inside a box moves the
         // start address 32 bytes along the swizzled row.
-        float s[64];
+        float s[kBN / 2];
         mbar_wait(bar.full_k(st), ph);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
-          const uint32_t box = (kk / 4) * kBM * kSpan + (kk % 4) * 32;
-          wgmma_ss_n128(s, smem_desc(q_wg + box, 16, 8 * kSpan),
-                        smem_desc(k_s + box, 16, 8 * kSpan), kk > 0);
+          const uint32_t q_box = (kk / 4) * kBM * kSpan + (kk % 4) * 32;
+          const uint32_t k_box = (kk / 4) * kBN * kSpan + (kk % 4) * 32;
+          if constexpr (kBN == 128)
+            wgmma_ss_n128(s, smem_desc(q_wg + q_box, 16, 8 * kSpan),
+                          smem_desc(k_s + k_box, 16, 8 * kSpan), kk > 0);
+          else
+            wgmma_ss_n64(s, smem_desc(q_wg + q_box, 16, 8 * kSpan),
+                         smem_desc(k_s + k_box, 16, 8 * kSpan), kk > 0);
         }
         wgmma_commit();
         wgmma_wait_all();
         hold(s);
         if (j == u.n_kt - 1 && t == 0) mbar_arrive(bar.q_empty());
 
-        const int n0 = j * kBN;
         if (n0 + kBN > sk || (causal && n0 + kBN - 1 > u.q0 + 64 * cw)) {
 #pragma unroll
-          for (int i = 0; i < 64; ++i) {
+          for (int i = 0; i < kBN / 2; ++i) {
             const int col = n0 + 8 * (i / 4) + col0 + i % 2;
             const int row = row0 + 8 * ((i / 2) % 2);
             if (col >= sk || (causal && col > row)) s[i] = -INFINITY;
@@ -483,7 +583,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         // online softmax in the log2 domain: m is kept scaled by scale_log2
         float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-        for (int i = 0; i < 64; ++i)
+        for (int i = 0; i < kBN / 2; ++i)
           mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], s[i]);
         float mu[2];
 #pragma unroll
@@ -499,9 +599,9 @@ __global__ void __launch_bounds__(kThreads, 1)
           for (int i = 0; i < D / 2; ++i)
             if ((i / 2) % 2 == r) acc[i] *= alpha;
         }
-        uint32_t p[32];
+        uint32_t p[kBN / 4];
 #pragma unroll
-        for (int i = 0; i < 64; i += 2) {
+        for (int i = 0; i < kBN / 2; i += 2) {
           const int r = (i / 2) % 2;
           const float p0 = ex2(fmaf(s[i], scale_log2, -mu[r]));
           const float p1 = ex2(fmaf(s[i + 1], scale_log2, -mu[r]));
@@ -510,7 +610,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
 
         // O += P V over the tile's keys in k16 steps: 16 rows of V lie
-        // 2048 bytes apart; the second box of 64 columns is 16 KB further.
+        // 2048 bytes apart; the next box of 64 columns is a box further.
         hold(acc);
         hold(p);
         mbar_wait(bar.full_v(st), ph);
@@ -519,7 +619,10 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int kk = 0; kk < kBN / 16; ++kk) {
           const uint64_t vd =
               smem_desc(v_s + kk * 16 * kSpan, kBN * kSpan, 8 * kSpan);
-          if constexpr (D == 128)
+          if constexpr (D == 256)
+            wgmma_rs_n256(acc, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
+                          p[4 * kk + 3], vd);
+          else if constexpr (D == 128)
             wgmma_rs_n128(acc, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
                           p[4 * kk + 3], vd);
           else
@@ -534,30 +637,38 @@ __global__ void __launch_bounds__(kThreads, 1)
 
       // epilogue: the row sums over the four threads of a row, then O / l
       // in bf16 into this consumer's buffer (swizzled as the O map reads
-      // it), stored by TMA while the consumer goes on to its next unit
+      // it), stored by TMA while the consumer goes on to its next unit; at
+      // d 256 in two halves of 128 columns, the second written once the
+      // store of the first has read the buffer
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
         l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
         l[r] = 1.0f / l[r];
       }
-      if (t == 0) bulk_wait_read();                 // the last store has read
-      consumer_sync(cw);
+      constexpr int kPerHalf = D / 2 / L::kHalves;   // acc values a half
 #pragma unroll
-      for (int i = 0; i < D / 2; i += 2) {
-        const int r = (i / 2) % 2;
-        const int row = 16 * warp + lane / 4 + 8 * r, col = 8 * (i / 4) + col0;
-        st_shared(o_wg + (col / 64) * (kBM / 2) * kSpan + row * kSpan +
-                      (((col % 64) / 8) ^ (row % 8)) * 16 + (col % 8) * 2,
-                  pack_bf16(acc[i] * l[r], acc[i + 1] * l[r]));
-      }
-      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-      consumer_sync(cw);
-      if (t == 0) {
-        for (int c = 0; c < L::kBoxes; ++c)
-          tma_store_4d(&to, o_wg + c * (kBM / 2) * kSpan, 64 * c, u.h,
-                       u.q0 + 64 * cw, u.b);
-        bulk_commit();
+      for (int hf = 0; hf < L::kHalves; ++hf) {
+        if (t == 0) bulk_wait_read();               // the last store has read
+        consumer_sync(cw);
+#pragma unroll
+        for (int i = hf * kPerHalf; i < (hf + 1) * kPerHalf; i += 2) {
+          const int r = (i / 2) % 2;
+          const int row = 16 * warp + lane / 4 + 8 * r;
+          const int col = 8 * (i / 4) + col0 - 64 * L::kOBoxes * hf;
+          st_shared(o_wg + (col / 64) * (kBM / 2) * kSpan + row * kSpan +
+                        (((col % 64) / 8) ^ (row % 8)) * 16 + (col % 8) * 2,
+                    pack_bf16(acc[i] * l[r], acc[i + 1] * l[r]));
+        }
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        consumer_sync(cw);
+        if (t == 0) {
+          for (int c = 0; c < L::kOBoxes; ++c)
+            tma_store_4d(&to, o_wg + c * (kBM / 2) * kSpan,
+                         64 * (L::kOBoxes * hf + c), u.h, u.q0 + 64 * cw,
+                         u.b);
+          bulk_commit();
+        }
       }
     }
     if (t == 0) bulk_wait();
@@ -612,8 +723,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
            int hq, int hkv, int sq, int sk, int causal, cudaStream_t stream) {
   CUtensorMap mq, mk, mv, mo;
   if (!make_map(&mq, q, D, hq, sq, b, kBM) ||
-      !make_map(&mk, k, D, hkv, sk, b, kBN) ||
-      !make_map(&mv, v, D, hkv, sk, b, kBN) ||
+      !make_map(&mk, k, D, hkv, sk, b, Layout<D>::kBN) ||
+      !make_map(&mv, v, D, hkv, sk, b, Layout<D>::kBN) ||
       !make_map(&mo, o, D, hq, sq, b, kBM / 2))
     return static_cast<int>(cudaErrorInvalidValue);
   constexpr int smem = Layout<D>::kBytes;
@@ -647,7 +758,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
 }  // namespace
 
 // bfloat16 only.  q (b, sq, hq, d); k, v (b, sk, hkv, d); o (b, sq, hq, d);
-// d 64 or 128; sq and sk multiples of 64; every pointer 16-byte aligned.
+// d 64, 128 or 256; sq and sk multiples of 64; every pointer 16-byte aligned.
 extern "C" int flash_attention_sm90_fwd(const void* q, const void* k,
                                         const void* v, void* o, int b, int hq,
                                         int hkv, int sq, int sk, int d,
@@ -664,6 +775,7 @@ extern "C" int flash_attention_sm90_fwd(const void* q, const void* k,
   switch (d) {
     case 64: return launch<64>(q, k, v, o, b, hq, hkv, sq, sk, causal, s);
     case 128: return launch<128>(q, k, v, o, b, hq, hkv, sq, sk, causal, s);
+    case 256: return launch<256>(q, k, v, o, b, hq, hkv, sq, sk, causal, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

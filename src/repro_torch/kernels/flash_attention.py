@@ -31,14 +31,15 @@ import torch
 
 from ._build import check_launch, load_library
 
-__all__ = ["BLOCK", "HEAD_DIMS", "SM90_HEAD_DIMS", "SM90_TILE", "NEG_INF",
+__all__ = ["BLOCK", "HEAD_DIMS", "SM90_HEAD_DIMS", "SM90_TILES", "NEG_INF",
            "SOURCES", "LAUNCHES", "kernel_for", "flash_attention_kernel",
            "flash_attention_plain", "flash_attention_sm90_plain"]
 
 BLOCK = 64                      # kBlock of csrc/flash_attention.cu
 HEAD_DIMS = (16, 32, 64, 128, 256)
-SM90_HEAD_DIMS = (64, 128)      # instantiated in csrc/flash_attention_sm90.cu
-SM90_TILE = 128                 # kBN of csrc/flash_attention_sm90.cu
+SM90_HEAD_DIMS = (64, 128, 256)  # instantiated in csrc/flash_attention_sm90.cu
+# keys a tile of the tensor-core kernel, by head dim: Layout<D>::kBN
+SM90_TILES = {64: 128, 128: 128, 256: 64}
 NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # kernel_for's answer -> the source of that kernel, under kernels/
@@ -103,7 +104,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention_sm90_plain(q: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor, causal: bool) -> torch.Tensor:
     """The tensor-core kernel's numerics in plain PyTorch: float32 scores, an
-    online softmax over ``SM90_TILE``-key tiles in the log2 domain, the
+    online softmax over ``SM90_TILES[d]``-key tiles in the log2 domain, the
     unnormalised probabilities rounded to bfloat16 for P.V (their sum taken
     before rounding), the output divided by that sum and rounded to q's
     dtype.  The same inputs and layout as ``flash_attention_plain``."""
@@ -117,8 +118,9 @@ def flash_attention_sm90_plain(q: torch.Tensor, k: torch.Tensor,
     l = torch.zeros((b, hq, sq, 1), device=q.device)
     acc = torch.zeros((b, hq, sq, d), device=q.device)
     rows = torch.arange(sq, device=q.device)[:, None]
-    for n0 in range(0, sk, SM90_TILE):
-        sc = qf @ kf[:, :, n0:n0 + SM90_TILE].transpose(-1, -2)
+    tile = SM90_TILES[d]
+    for n0 in range(0, sk, tile):
+        sc = qf @ kf[:, :, n0:n0 + tile].transpose(-1, -2)
         if causal:
             cols = n0 + torch.arange(sc.shape[-1], device=q.device)[None, :]
             sc = sc.masked_fill(cols > rows, -math.inf)
@@ -127,6 +129,6 @@ def flash_attention_sm90_plain(q: torch.Tensor, k: torch.Tensor,
         alpha = torch.exp2(m - mu)
         p = torch.exp2(sc * c - mu)
         l = l * alpha + p.sum(-1, keepdim=True)
-        acc = acc * alpha + p.bfloat16().float() @ vf[:, :, n0:n0 + SM90_TILE]
+        acc = acc * alpha + p.bfloat16().float() @ vf[:, :, n0:n0 + tile]
         m = m_new
     return (acc / l).transpose(1, 2).to(q.dtype).contiguous()

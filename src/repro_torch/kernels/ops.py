@@ -100,21 +100,28 @@ def eviction_batch(perms: torch.Tensor, evictors: torch.Tensor,
     return fn(perms, evictors, warm, probe)
 
 
-@_counted
-def stream_read(x: torch.Tensor, *, block: int = 64 * 1024) -> torch.Tensor:
-    """x (N,) float32 -> per-block float32 sums (N // block,)."""
+def _check_stream(x, block: int) -> None:
+    """The stream probes' contract: x (N,) float32 in whole ``block``s, as
+    the reference asserts."""
     _check("x", x, torch.float32, 1, x.device)
     if block <= 0 or x.shape[0] % block:
         raise ValueError(f"length {x.shape[0]} is not a multiple of block "
                          f"{block}")
+
+
+@_counted
+def stream_read(x: torch.Tensor, *, block: int = 64 * 1024) -> torch.Tensor:
+    """x (N,) float32 -> per-block float32 sums (N // block,)."""
+    _check_stream(x, block)
     fn = _route(x.device, stream_read_kernel, stream_read_plain)
     return fn(x, block)
 
 
 @_counted
-def stream_write(x: torch.Tensor) -> torch.Tensor:
-    """x (N,) float32 -> x + 1, streamed tile by tile."""
-    _check("x", x, torch.float32, 1, x.device)
+def stream_write(x: torch.Tensor, *, block: int = 64 * 1024) -> torch.Tensor:
+    """x (N,) float32 -> x + 1, in whole ``block``s as the reference's tile
+    copy takes them (the kernel's own slices are finer)."""
+    _check_stream(x, block)
     fn = _route(x.device, stream_write_kernel, stream_write_plain)
     return fn(x)
 

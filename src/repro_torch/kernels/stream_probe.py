@@ -1,103 +1,101 @@
 """Stream bandwidth probe kernels (paper §IV-I) for NVIDIA Hopper.
 
 Replace the Pallas kernels of the reference package
-(``repro/kernels/stream_probe.py``):
+(``repro/kernels/stream_probe.py``), both in CUDA C++
+(``csrc/stream_probe.cu``, whose note gives their design):
 
 * ``stream_read_kernel``  — f32 sum of each ``block`` of ``x`` (bytes in,
-  ~0 out), in CUDA C++ (``csrc/stream_probe.cu``, whose note gives its
-  design): each block is cut into slices of ``READ_SLICE`` elements, one CTA
-  each, so a 2 MiB read spans every SM; the last CTA of a block sums the
-  block's partials in a fixed order, so a call is one launch and its result
-  is the same from run to run.
-* ``stream_write_kernel`` — ``y = x + 1`` in x's dtype (bytes in == bytes
-  out), in Triton: a 1-D grid of masked tiles.
+  ~0 out): each block is cut into slices of ``READ_SLICE`` elements, one
+  CTA each, so a 2 MiB read spans every SM; the last CTA of a block sums
+  the block's partials in a fixed order, so a call is one launch and its
+  result is the same from run to run.
+* ``stream_write_kernel`` — ``y = x + 1`` in float32 (bytes in == bytes
+  out): slices of ``WRITE_SLICE`` elements, one CTA each, 16-byte loads
+  and stores.
 
 What bounds them: bytes.  Each element is read once (and, for the write,
 written once) with one add per element, far below the card's arithmetic
-rate, so the least time is the bytes moved over the memory rate.  Both keep
-every load wide and contiguous and add nothing to the bytes.  At the
+rate, so the least time is the bytes moved over the memory rate.  At the
 probe's own size (2 MiB) the data sits in the 50 MB L2 and a launch lasts
-microseconds, so the wall time of a call is mostly launch overhead: that is
-what the probe reports, not HBM bandwidth.
+microseconds, so the wall time of a call is mostly the host's launch path:
+that is what the probe reports, not HBM bandwidth.  So the two share one
+short path: the C entry points are bound once, the stream is taken as a
+raw handle, a call makes one allocation (its output; the read's partial
+sums and block counters are scratch kept per stream), and the checks are
+``ops``'s alone.
 
-The CUDA library is built and ``triton`` imported when a kernel is first
-launched, never at import, so the module imports where there is neither.
-The plain PyTorch versions sit beside the kernels.
+The CUDA library is built when a kernel is first launched, never at
+import, so the module imports where there is no compiler.  The plain
+PyTorch versions sit beside the kernels.
 """
-import functools
-
 import torch
 
 from ._build import check_launch, load_library
 
 __all__ = ["stream_read_kernel", "stream_write_kernel", "stream_read_plain",
-           "stream_write_plain", "READ_SLICE", "WRITE_TILE"]
+           "stream_write_plain", "READ_SLICE", "WRITE_SLICE"]
 
 READ_SLICE = 2048       # kSlice of csrc/stream_probe.cu: elements per CTA
-WRITE_TILE = 4096       # elements per program of the write grid
+WRITE_SLICE = 2048      # kWriteSlice of csrc/stream_probe.cu
 
-tl = None               # triton.language, bound by _write_kernel()
+_entry = None           # (stream_read_fwd, stream_write_fwd), bound once
 
-# Per (device, stream): zeroed block counters of the read kernel, which
-# leaves them zeroed; grown when a call has more blocks.  Launches on one
-# stream run in order, so they never share counters at the same time.
-_counters: dict[tuple[torch.device, int], torch.Tensor] = {}
-
-
-@functools.cache
-def _write_kernel():
-    """Compile-on-first-use Triton write kernel."""
-    global tl
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def write_kernel(x_ptr, y_ptr, n, TILE: tl.constexpr):
-        pid = tl.program_id(0)
-        offs = pid.to(tl.int64) * TILE + tl.arange(0, TILE)
-        mask = offs < n
-        x = tl.load(x_ptr + offs, mask=mask)
-        tl.store(y_ptr + offs, x + 1, mask=mask)
-
-    return write_kernel
+# Per (device index, stream): the read's scratch, the partial sums and the
+# zeroed block counters (which the kernel leaves zeroed), grown when a call
+# needs more.  Launches on one stream run in order, so they never share
+# scratch at the same time.
+_scratch: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
 
 
-def _block_counters(device: torch.device, stream: int,
-                    blocks: int) -> torch.Tensor:
-    counters = _counters.get((device, stream))
-    if counters is None or counters.numel() < blocks:
-        counters = torch.zeros(max(blocks, 1024), dtype=torch.int32,
-                               device=device)
-        _counters[(device, stream)] = counters
-    return counters
+def _entry_points():
+    global _entry
+    if _entry is None:
+        lib, _ = load_library()
+        _entry = (lib.stream_read_fwd, lib.stream_write_fwd)
+    return _entry
+
+
+def _raise_if_failed(name: str, err: int) -> None:
+    if err:
+        check_launch(load_library()[0], name, err)
+
+
+def _read_scratch(x: torch.Tensor, device: int, stream: int, partials: int,
+                  blocks: int) -> tuple[torch.Tensor, torch.Tensor]:
+    scratch = _scratch.get((device, stream))
+    if (scratch is None or scratch[0].numel() < partials
+            or scratch[1].numel() < blocks):
+        scratch = (x.new_empty(max(partials, 1 << 15)),
+                   torch.zeros(max(blocks, 1024), dtype=torch.int32,
+                               device=x.device))
+        _scratch[(device, stream)] = scratch
+    return scratch
 
 
 def stream_read_kernel(x: torch.Tensor, block: int) -> torch.Tensor:
     """x (N,) -> per-block f32 sums (N // block,); N % block == 0.  One
     launch on the current stream."""
-    lib, _ = load_library()
+    read, _ = _entry_points()
     n = x.shape[0]
     blocks = n // block
-    # one allocation: the block sums, then each slice's partial sum
-    buf = torch.empty(blocks * (1 + -(-block // READ_SLICE)),
-                      dtype=torch.float32, device=x.device)
-    sums = buf.data_ptr()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    check_launch(lib, "stream_read_fwd", lib.stream_read_fwd(
-        x.data_ptr(), sums, sums + 4 * blocks,
-        _block_counters(x.device, stream, blocks).data_ptr(), n, block,
-        stream))
-    return buf[:blocks]
+    device = x.get_device()
+    stream = torch._C._cuda_getCurrentRawStream(device)
+    partial, counters = _read_scratch(x, device, stream,
+                                      blocks * -(-block // READ_SLICE), blocks)
+    sums = x.new_empty(blocks)
+    _raise_if_failed("stream_read_fwd", read(
+        x.data_ptr(), sums.data_ptr(), partial.data_ptr(),
+        counters.data_ptr(), n, block, stream))
+    return sums
 
 
 def stream_write_kernel(x: torch.Tensor) -> torch.Tensor:
-    """x (N,) -> x + 1 in x's dtype."""
-    write_kernel = _write_kernel()
+    """x (N,) float32 -> x + 1.  One launch on the current stream."""
+    _, write = _entry_points()
     y = torch.empty_like(x)
-    n = x.shape[0]
-    write_kernel[((n + WRITE_TILE - 1) // WRITE_TILE,)](x, y, n,
-                                                        TILE=WRITE_TILE,
-                                                        num_warps=8)
+    _raise_if_failed("stream_write_fwd", write(
+        x.data_ptr(), y.data_ptr(), x.shape[0],
+        torch._C._cuda_getCurrentRawStream(x.get_device())))
     return y
 
 

@@ -2,8 +2,8 @@
 
 On the CPU the wrappers in ``repro_torch.kernels.ops`` run the kernels'
 plain PyTorch versions, so these tests pin those versions to the Pallas
-kernels (interpret mode) and to the pure-Python contracts.  The CUDA and
-Triton kernels themselves are held to the same plain versions on the card
+kernels (interpret mode) and to the pure-Python contracts.  The CUDA
+kernels themselves are held to the same plain versions on the card
 by ``chip_smoke.py``; here only the contract between the wrappers and the
 CUDA sources (entry points, argument counts, tile constants) is read from
 the sources.
@@ -140,9 +140,26 @@ def test_stream_read_matches_pallas(n, block):
 @pytest.mark.parametrize("n", [1 << 16, 1 << 17])
 def test_stream_write_matches_pallas(n):
     x = (np.random.default_rng(n).random(n, dtype=np.float32) - 0.5) * 1e3
-    got = ops.stream_write(torch.from_numpy(x)).numpy()
+    got = ops.stream_write(torch.from_numpy(x), block=1 << 15).numpy()
     want = np.asarray(stream_write_kernel(jnp.asarray(x), block=1 << 15))
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("mode", ["read", "write"])
+def test_stream_length_off_the_block_fails_in_both_packages(mode):
+    """A length that is not a multiple of ``block`` is refused by the
+    reference's assert and by the port's ``ValueError``, before any
+    launch."""
+    n, block = 3 * 1001 + 1, 1001
+    x = np.zeros(n, dtype=np.float32)
+    ref_fn = stream_read_kernel if mode == "read" else stream_write_kernel
+    port_fn = ops.stream_read if mode == "read" else ops.stream_write
+    with pytest.raises(AssertionError):
+        ref_fn(jnp.asarray(x), block=block)
+    ops.reset_launches()
+    with pytest.raises(ValueError, match="not a multiple of block"):
+        port_fn(torch.from_numpy(x), block=block)
+    assert port_fn.launches == 0
 
 
 def _entry_points() -> dict:
@@ -159,8 +176,8 @@ def test_every_entry_point_has_a_signature_of_its_arity():
     """ctypes passes what ``_SIGNATURES`` says: a missing or miscounted
     entry would cut a pointer or shift every argument after it."""
     found = _entry_points()
-    assert {"stream_read_fwd", "flash_attention_sm90_fwd",
-            "flash_attention_fwd"} <= set(found)
+    assert {"stream_read_fwd", "stream_write_fwd",
+            "flash_attention_sm90_fwd", "flash_attention_fwd"} <= set(found)
     assert set(found) == set(_build._SIGNATURES)
     for name, arity in found.items():
         assert len(_build._SIGNATURES[name][0]) == arity, name
@@ -172,6 +189,13 @@ def test_stream_read_slice_matches_its_source():
     assert f"constexpr int kSlice = {stream_probe.READ_SLICE};" in src
 
 
+def test_stream_write_slice_matches_its_source():
+    """``WRITE_SLICE`` is the write kernel's slice, one CTA's elements."""
+    src = (pathlib.Path(_build.CSRC) / "stream_probe.cu").read_text()
+    assert f"constexpr int kWriteSlice = {stream_probe.WRITE_SLICE};" in src
+    assert "stream_write_kernel<<<" in src
+
+
 def test_wrappers_count_each_launch_on_cpu():
     ops.reset_launches()
     perms = torch.zeros((2, 4), dtype=torch.int32)
@@ -181,7 +205,7 @@ def test_wrappers_count_each_launch_on_cpu():
     ops.pchase_batch(perms, steps)
     ops.eviction_batch(perms, perms, steps, steps)
     ops.stream_read(x, block=4)
-    ops.stream_write(x)
+    ops.stream_write(x, block=4)
     assert [fn.launches for fn in ops.WRAPPERS] == [2, 1, 1, 1]
     ops.reset_launches()
     assert [fn.launches for fn in ops.WRAPPERS] == [0, 0, 0, 0]
@@ -204,7 +228,10 @@ def test_wrappers_count_each_launch_on_cpu():
     (lambda: ops.stream_read(torch.zeros(10), block=4), ValueError),
     (lambda: ops.stream_write(torch.zeros(8, dtype=torch.float64)),
      TypeError),
-    (lambda: ops.stream_write(torch.zeros(8, device="meta")), ValueError),
+    (lambda: ops.stream_write(torch.zeros(8, device="meta"), block=4),
+     ValueError),
+    (lambda: ops.stream_write(torch.zeros(10), block=4), ValueError),
+    (lambda: ops.stream_write(torch.zeros(8), block=0), ValueError),
 ])
 def test_wrappers_reject_what_the_kernels_do_not_take(call, exc):
     ops.reset_launches()
@@ -240,6 +267,9 @@ for name in ("repro_torch.kernels.flash_attention",
              "repro_torch.serve.engine", "repro_torch.launch.serve"):
     assert name in names, name
 import chip_smoke
+import torch
+from repro_torch.kernels import ops
+ops.stream_write(torch.zeros(8), block=4)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "repro" or m.startswith("repro."))
@@ -257,6 +287,17 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert proc.returncode == 0, proc.stderr
     count, bad = proc.stdout.split(" ", 1)
     assert int(count) >= 53 and bad.strip() == "[]"
+
+
+def test_port_holds_no_triton_kernel():
+    """Every kernel of the port is CUDA C++: no source of the package, and
+    not ``chip_smoke.py``, imports ``triton``."""
+    sources = list(pathlib.Path(ROOT, "src", "repro_torch").rglob("*.py"))
+    sources.append(pathlib.Path(ROOT, "chip_smoke.py"))
+    assert len(sources) > 50
+    for path in sources:
+        assert not re.search(r"^\s*(import|from)\s+triton\b",
+                             path.read_text(), re.M), path
 
 
 @pytest.mark.parametrize("alone", [False, True])

@@ -107,10 +107,10 @@ def test_mha_pads_a_ragged_causal_prompt_exactly(sq, sk, dtype):
 @pytest.mark.parametrize("dtype,d,want", [
     (torch.bfloat16, 128, "sm90"), (torch.bfloat16, 64, "sm90"),
     (torch.bfloat16, 16, "cuda_core"), (torch.bfloat16, 32, "cuda_core"),
-    (torch.bfloat16, 256, "cuda_core"), (torch.float32, 64, "cuda_core"),
+    (torch.bfloat16, 256, "sm90"), (torch.float32, 64, "cuda_core"),
     (torch.float32, 128, "cuda_core"), (torch.float32, 256, "cuda_core")])
-def test_kernel_for_picks_tensor_cores_for_bf16_at_64_and_128(dtype, d,
-                                                              want):
+def test_kernel_for_picks_tensor_cores_for_bf16_at_64_128_and_256(dtype, d,
+                                                                  want):
     assert fa.kernel_for(dtype, d) == want
     assert fa.SOURCES[want].startswith("csrc/")
 
@@ -130,10 +130,23 @@ def test_sm90_head_dims_are_the_ones_its_source_instantiates():
     assert set(fa.SM90_HEAD_DIMS) <= set(fa.HEAD_DIMS)
 
 
+def test_sm90_tiles_are_the_ones_its_layout_gives_each_head_dim():
+    """The plain emulation rescales where the kernel does: every
+    ``SM90_TILES[d]`` keys, which is ``Layout<D>::kBN`` in the source."""
+    src = _csrc("flash_attention_sm90.cu")
+    (above, big, small), = re.findall(
+        r"static constexpr int kBN = D > (\d+) \? (\d+) : (\d+);", src)
+    assert set(fa.SM90_TILES) == set(fa.SM90_HEAD_DIMS)
+    for d, tile in fa.SM90_TILES.items():
+        assert tile == (int(big) if d > int(above) else int(small)), d
+    assert fa.SM90_TILES[256] == 64
+
+
 @pytest.mark.parametrize("b,hq,hkv,s,d,causal", [
     (1, 4, 2, 192, 128, True),       # a multiple of 64 that is not of 128
     (2, 2, 1, 128, 64, False),
-], ids=["d128-causal-S192", "d64-full"])
+    (1, 2, 1, 128, 256, True),
+], ids=["d128-causal-S192", "d64-full", "d256-causal"])
 def test_mha_bf16_at_the_tensor_core_head_dims_matches_pallas(b, hq, hkv, s,
                                                               d, causal):
     (jq, jk, jv), (tq, tk, tv) = _attn_inputs(b, hq, hkv, s, s, d, "bfloat16",
@@ -194,24 +207,27 @@ def test_bf16_probability_rounding_stays_within_the_stated_tolerance(causal):
         float((diff - 2 ** -7 * want.abs()).max())
 
 
-@pytest.mark.parametrize("hq,hkv,s,causal", [
-    (4, 2, 512, True), (4, 2, 448, True), (2, 1, 256, False)],
-    ids=["gqa-causal-S512", "gqa-causal-S448", "gqa-full-S256"])
-def test_sm90_plain_matches_the_tiled_emulation(hq, hkv, s, causal):
+@pytest.mark.parametrize("hq,hkv,s,causal,d,tile", [
+    (4, 2, 512, True, 128, 128), (4, 2, 448, True, 128, 128),
+    (2, 1, 256, False, 128, 128), (4, 1, 320, True, 256, 64)],
+    ids=["gqa-causal-S512", "gqa-causal-S448", "gqa-full-S256",
+         "d256-causal-S320-tile64"])
+def test_sm90_plain_matches_the_tiled_emulation(hq, hkv, s, causal, d, tile):
     """``flash_attention_sm90_plain``, which ``chip_smoke.py`` holds the
     tensor-core kernel to on the card, is the emulation above with the kv
-    heads shared by their query groups and a last key tile that may be
-    short: within one bf16 ulp (2**-7) and 2**-10 max|v|."""
+    heads shared by their query groups, a last key tile that may be short
+    and, at head dim 256, the kernel's 64-key tiles: within one bf16 ulp
+    (2**-7) and 2**-10 max|v|."""
     rng = np.random.default_rng(s + hq)
-    q = torch.from_numpy(rng.standard_normal((1, s, hq, 128),
+    q = torch.from_numpy(rng.standard_normal((1, s, hq, d),
                                              dtype=np.float32)).bfloat16()
-    k, v = (torch.from_numpy(rng.standard_normal((1, s, hkv, 128),
+    k, v = (torch.from_numpy(rng.standard_normal((1, s, hkv, d),
                                                  dtype=np.float32))
             .bfloat16() for _ in range(2))
     got = fa.flash_attention_sm90_plain(q, k, v, causal)
     want = _tiled_bf16_probabilities(
         q.float(), *(x.float().repeat_interleave(hq // hkv, dim=2)
-                     for x in (k, v)), causal)
+                     for x in (k, v)), causal, tile=tile)
     assert got.dtype == torch.bfloat16 and got.shape == q.shape
     atol = 2 ** -10 * float(v.float().abs().max())
     diff = (got.float() - want.float()).abs()

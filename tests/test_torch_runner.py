@@ -67,9 +67,9 @@ def _record_port(monkeypatch, calls):
         calls.append(("read", _np(x), np.array(block)))
         return originals["stream_read"](x, block=block)
 
-    def stream_write(x):
-        calls.append(("write", _np(x)))
-        return originals["stream_write"](x)
+    def stream_write(x, *, block):
+        calls.append(("write", _np(x), np.array(block)))
+        return originals["stream_write"](x, block=block)
 
     for fn in (pchase_batch, eviction_batch, stream_read, stream_write):
         monkeypatch.setattr(ops, fn.__name__, fn)
@@ -91,7 +91,7 @@ def _record_reference(monkeypatch, calls):
         return jnp.zeros(x.shape[0] // block, jnp.float32)
 
     def stream_write_kernel(x, *, block, interpret=True):
-        calls.append(("write", _np(x)))
+        calls.append(("write", _np(x), np.array(block)))
         return x
 
     monkeypatch.setattr(ref_pchase, "pchase_kernel_batch",
