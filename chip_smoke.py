@@ -20,8 +20,7 @@ to a plain version):
              whose summation order differs, at 2 MiB and at blocks of
              1001), with CUDA-event times and, for the stream kernels,
              ``torch.sum`` and ``torch.add``, the device time from
-             ``torch.profiler`` and the host time of each piece of the
-             launch path;
+             ``torch.profiler`` and the median host time of one call;
 3. discover — ``discover_cuda()`` with its defaults on the card, its
              discrete attributes held to ``make_cuda_model().ground_truth()``
              and every probe kernel's launch count, read around this phase
@@ -39,8 +38,9 @@ to a plain version):
              bfloat16 for qwen3-14b, then rwkv6-3b (8 requests of 512
              tokens, 16 new tokens each, 4 slots): the launch counts read
              around each call alone (one ``mha`` or ``wkv6`` per layer and
-             wave; every ``mha`` a launch of the tensor-core kernel, counted
-             where that kernel launches), 16 tokens a request, finite
+             wave; every ``mha`` a launch of the tensor-core kernel at head
+             dim 128 and none at 256, counted by head dim where that kernel
+             launches), 16 tokens a request, finite
              logits, equal greedy tokens
              from a second, warm run of one wave; that warm wave's prefill
              and decode split, and a third run of it under
@@ -105,21 +105,24 @@ def event_ms(fn, reps: int = REPS) -> float:
     return statistics.median(times)
 
 
-def device_ms(fns: dict, reps: int = REPS) -> dict:
-    """Device time of one call of each function of ``fns`` (by label): the
-    sum of the kernels and copies ``torch.profiler`` sees start inside the
-    label's span (``reps`` calls, after a warm-up, and a synchronise), over
-    ``reps``.  Host overhead between launches is left out.  A short tail of
-    other device work closes the session: in sessions without it the last
-    function's device events were missing at times."""
+PROFILER_SESSIONS = 3             # device_ms's tries at a whole session
+
+
+def _profiled(fns: dict, reps: int) -> dict:
+    """One ``torch.profiler`` session: for each label, one call in a span of
+    its own, then ``reps`` calls in the label's span, each span closed by a
+    synchronise.  Returns, by label, the device events (name, microseconds)
+    that start inside each of the two spans.  A short tail of other device
+    work closes the session: in sessions without it the last function's
+    device events were missing at times."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    for fn in fns.values():
-        fn()
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for label, fn in fns.items():
+        for label, (fn, _) in fns.items():
+            with record_function(f"device_ms:{label}:one"):
+                fn()
+                torch.cuda.synchronize()
             with record_function(f"device_ms:{label}"):
                 for _ in range(reps):
                     fn()
@@ -130,20 +133,81 @@ def device_ms(fns: dict, reps: int = REPS) -> dict:
         torch.cuda.synchronize()
         time.sleep(0.05)
     events = prof.events()
-    out = {}
-    for label in fns:
+    device = [e for e in events
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not e.is_user_annotation]
+
+    def inside(span: str) -> list:
         spans = [(e.time_range.start, e.time_range.end) for e in events
-                 if e.name == f"device_ms:{label}"
+                 if e.name == span
                  and e.device_type == torch.autograd.DeviceType.CPU]
-        check(len(spans) == 1, f"device_ms: {len(spans)} spans of {label}")
+        check(len(spans) == 1, f"device_ms: {len(spans)} spans {span}")
         lo, hi = spans[0]
-        busy = [e.time_range.elapsed_us() for e in events
-                if e.device_type == torch.autograd.DeviceType.CUDA
-                and not e.is_user_annotation
-                and lo <= e.time_range.start < hi]
-        check(busy, f"the profiler saw no device work of {label}")
-        out[label] = sum(busy) / reps / 1e3
-    return out
+        return [(e.name, e.time_range.elapsed_us()) for e in device
+                if lo <= e.time_range.start < hi]
+
+    return {label: (inside(f"device_ms:{label}:one"),
+                    inside(f"device_ms:{label}")) for label in fns}
+
+
+def device_ms(fns: dict, reps: int = REPS) -> dict:
+    """Device time of one call of each function of ``fns``, which maps a
+    label to ``(fn, events)``: the sum of the kernels and copies
+    ``torch.profiler`` sees start inside the label's span (``reps`` calls,
+    after a warm-up), over ``reps``.  Host overhead between launches is left
+    out.  One call in a span of its own shows the device events a call
+    makes, which must number ``events`` where that is given (a kernel of the
+    port: one launch); the label's span must hold each of them ``reps``
+    times and nothing else.  A session in which a label's events fall short
+    of that, or hold others, is printed and yields no time; the next of
+    ``PROFILER_SESSIONS`` sessions is taken instead, and the run fails when
+    none is whole."""
+    from collections import Counter
+
+    for fn, _ in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    for attempt in range(1, PROFILER_SESSIONS + 1):
+        seen, faults = _profiled(fns, reps), []
+        for label, (_, events_per_call) in fns.items():
+            one, timed = seen[label]
+            per_call = Counter(name for name, _ in one)
+            want = Counter({name: n * reps for name, n in per_call.items()})
+            if (not one or (events_per_call is not None
+                            and len(one) != events_per_call)
+                    or Counter(name for name, _ in timed) != want):
+                faults.append(
+                    f"{label}: one call "
+                    f"{dict(Counter(name[:60] for name, _ in one))}, "
+                    f"{reps} calls "
+                    f"{dict(Counter(name[:60] for name, _ in timed))}, "
+                    f"expected {events_per_call or 'as one call'} a call")
+        if not faults:
+            return {label: sum(us for _, us in seen[label][1]) / reps / 1e3
+                    for label in fns}
+        print(f"[device_ms] profiler session {attempt} of "
+              f"{PROFILER_SESSIONS} not whole, no time taken from it: "
+              + "; ".join(faults))
+    raise SmokeFailure(f"device_ms: no whole profiler session in "
+                       f"{PROFILER_SESSIONS}")
+
+
+HOST_CALLS = 1000                # host-only calls per timing
+
+
+def host_us(fn, calls: int = HOST_CALLS) -> float:
+    """Median host time of one call of ``fn``, in microseconds, over
+    ``calls`` calls each timed with ``perf_counter_ns`` (launches queue on
+    the device meanwhile; it is synchronised after the last)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter_ns()
+        fn()
+        times.append(time.perf_counter_ns() - t0)
+    torch.cuda.synchronize()
+    return statistics.median(times) / 1e3
 
 
 def bound_ms(nbytes: float, ops: float,
@@ -381,87 +445,23 @@ def phase_kernels(rng) -> dict:
         k_ms = event_ms(kernel)
         p_ms = event_ms(plain)
         l_ms = event_ms(library)
-        dev = device_ms({"kernel": kernel, "library": library})
+        dev = device_ms({"kernel": (kernel, 1), "library": (library, None)})
         k_dev, l_dev = dev["kernel"], dev["library"]
+        k_host, l_host = host_us(kernel), host_us(library)
         b_ms, b_by = bound_ms(nbytes, n)
         err = (max(errs.values()) if name == "stream_read" else
                float((write() - stream_write_plain(x)).abs().max()))
         exact = ("rtol 1e-5 ok (max_abs_err={err:g}); equal in two calls"
                  if name == "stream_read" else "bit-exact").format(err=err)
         print(f"[kernel] {name} {shape} ({ctas} CTAs): {exact}; "
-              f"kernel_ms={k_ms:.4f} (device {k_dev:.4f}) bound_ms={b_ms:.6f} "
-              f"({b_by}) plain_ms={p_ms:.4f} library_ms={l_ms:.4f} "
-              f"({lib_name}; device {l_dev:.4f})")
+              f"kernel_ms={k_ms:.4f} (device {k_dev:.4f}; host us a call "
+              f"{k_host:.2f}) bound_ms={b_ms:.6f} ({b_by}) plain_ms="
+              f"{p_ms:.4f} library_ms={l_ms:.4f} ({lib_name}; device "
+              f"{l_dev:.4f}; host us a call {l_host:.2f})")
         rows[name] = dict(shape=shape, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
                           bound_by=b_by, library_ms=l_ms, max_abs_err=err,
                           device_ms=k_dev, library_device_ms=l_dev)
-    _stream_host_path(x)
     return rows
-
-
-HOST_CALLS = 1000                # host-only calls per piece of a launch path
-
-
-def host_us(fn, calls: int = HOST_CALLS) -> float:
-    """Median host time of one call of ``fn``, in microseconds, over
-    ``calls`` calls each timed with ``perf_counter_ns`` (launches queue on
-    the device meanwhile; it is synchronised after the last)."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(calls):
-        t0 = time.perf_counter_ns()
-        fn()
-        times.append(time.perf_counter_ns() - t0)
-    torch.cuda.synchronize()
-    return statistics.median(times) / 1e3
-
-
-def _stream_host_path(x) -> None:
-    """The host time of each piece of the stream kernels' launch path, the
-    pieces the shared path dropped (a lock around the library, a Stream
-    object, a second buffer and its slice) beside those it kept."""
-    from repro_torch.kernels import ops, stream_probe
-    from repro_torch.kernels._build import load_library
-
-    read, write = stream_probe._entry_points()
-    dev = x.get_device()
-    raw = torch._C._cuda_getCurrentRawStream(dev)
-    blocks = x.shape[0] // BLOCK
-    sums = x.new_empty(blocks)
-    partial, counters = stream_probe._read_scratch(
-        x, dev, raw, blocks * BLOCK // stream_probe.READ_SLICE, blocks)
-    y = torch.empty_like(x)
-    args = (x.data_ptr(), sums.data_ptr(), partial.data_ptr(),
-            counters.data_ptr(), x.shape[0], BLOCK, raw)
-    pieces = {
-        "ops.stream_read": lambda: ops.stream_read(x, block=BLOCK),
-        "stream_read_kernel": lambda: stream_probe.stream_read_kernel(
-            x, BLOCK),
-        "ops.stream_write": lambda: ops.stream_write(x, block=BLOCK),
-        "stream_write_kernel": lambda: stream_probe.stream_write_kernel(x),
-        "torch.sum": lambda: torch.sum(x.view(-1, BLOCK), dim=1),
-        "torch.add": lambda: torch.add(x, 1),
-        "checks": lambda: ops._check_stream(x, BLOCK),
-        "load_library (dropped)": load_library,
-        "current_stream().cuda_stream (dropped)":
-            lambda: torch.cuda.current_stream(x.device).cuda_stream,
-        "raw stream": lambda: torch._C._cuda_getCurrentRawStream(
-            x.get_device()),
-        "new_empty(blocks)": lambda: x.new_empty(blocks),
-        "empty(blocks * 33)[:blocks] (dropped)": lambda: torch.empty(
-            blocks * 33, dtype=torch.float32, device=x.device)[:blocks],
-        "empty_like(x)": lambda: torch.empty_like(x),
-        "read scratch lookup": lambda: stream_probe._read_scratch(
-            x, dev, raw, blocks * BLOCK // stream_probe.READ_SLICE, blocks),
-        "read ctypes launch": lambda: read(*args),
-        "write ctypes launch": lambda: write(x.data_ptr(), y.data_ptr(),
-                                             x.shape[0], raw),
-    }
-    times = {name: host_us(fn) for name, fn in pieces.items()}
-    print("[kernel] stream launch path, host us a call (median of "
-          f"{HOST_CALLS}): " + "; ".join(f"{name} {us:.2f}"
-                                         for name, us in times.items()))
 
 
 # --------------------------------------------------------------------------
@@ -694,9 +694,9 @@ def phase_llm_kernels() -> dict:
         if route == "sm90" and seq == ATTN["s"] and causal and d >= 128:
             # the tensor-core kernel's device time beside SDPA's
             dev = device_ms({
-                "kernel": lambda: ops.mha(q, k, v, causal=causal),
-                "library": lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=causal, enable_gqa=True)})
+                "kernel": (lambda: ops.mha(q, k, v, causal=causal), 1),
+                "library": (lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal, enable_gqa=True), None)})
             row["device_ms"] = dev["kernel"]
             row["library_device_ms"] = dev["library"]
             print(f"[llm] mha {shape}: device_ms={row['device_ms']:.4f} "
@@ -884,35 +884,41 @@ def _smoke_agreement(arch: str, overrides: dict) -> float:
 
 def phase_serve() -> dict:
     """Returns the kernels' launch counts read around the serve runs: the
-    wrappers' (``mha`` counted as the tensor-core kernel's own launches)
-    and, as ``mha_f32``, the CUDA-core attention kernel's launches in the
-    f32 smoke run."""
+    wrappers' (``mha`` counted as the tensor-core kernel's own launches at
+    head dim 128, ``mha_d256`` as its launches at head dim 256) and, as
+    ``mha_f32``, the CUDA-core attention kernel's launches in the f32 smoke
+    run."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import LAUNCHES as ATTN_LAUNCHES
+    from repro_torch.kernels.flash_attention import SM90_LAUNCHES
     from repro_torch.launch import serve
 
     torch.backends.cuda.matmul.allow_tf32 = False    # full f32 (smoke check)
     waves = -(-SERVE["requests"] // SERVE["slots"])
-    launches = {"mha": 0, "wkv6": 0, "pchase": 0}
+    launches = {"mha": 0, "wkv6": 0, "pchase": 0, "mha_d256": 0}
     for arch, kernel in (("qwen3-14b", "mha"), ("rwkv6-3b", "wkv6")):
         cfg = get_config(arch)
         ops.reset_launches()
         res = serve.main(_serve_argv(arch))
         counts = {fn.__name__: fn.launches for fn in ops.LLM_WRAPPERS}
         routes = dict(ATTN_LAUNCHES)
+        by_d = dict(SM90_LAUNCHES)
         want = {"mha": 0, "wkv6": 0, "pchase": 0,
                 kernel: cfg.n_layers * waves}
         check(counts == want == res["launches"],
               f"{arch}: launches {counts} (reported {res['launches']}), "
               f"expected {want}")
         # every mha call of the bf16, head-dim-128 model is a launch of the
-        # tensor-core kernel, counted where that kernel launches
+        # tensor-core kernel at head dim 128, counted where it launches; no
+        # served config has head dim 256
         want_routes = {"sm90": want["mha"], "cuda_core": 0}
-        check(routes == want_routes,
-              f"{arch}: attention kernel launches {routes}, expected "
-              f"{want_routes}")
-        counts["mha"] = routes["sm90"]
+        want_by_d = {64: 0, 128: want["mha"], 256: 0}
+        check(routes == want_routes and by_d == want_by_d,
+              f"{arch}: attention kernel launches {routes}, by head dim "
+              f"{by_d}; expected {want_routes}, {want_by_d}")
+        counts["mha"] = by_d[128]
+        counts["mha_d256"] = by_d[256]
         for name, count in counts.items():
             launches[name] += count
         check(all(o.shape == (SERVE["max_new"],) for o in res["outputs"]),
@@ -929,7 +935,7 @@ def phase_serve() -> dict:
               f"prefill {res['prefill_s']:.3f}s ({eng.stats['prefills']} "
               f"waves), decode {res['decode_s']:.3f}s "
               f"({eng.stats['decode_steps']} steps); launches {counts}; "
-              f"attention kernels {routes}")
+              f"attention kernels {routes}, tensor-core by head dim {by_d}")
         prompts = np.stack(res["requests"][:SERVE["slots"]])
         before = dict(eng.stats)
         again = eng.generate_batch(prompts, SERVE["max_new"])
@@ -1006,8 +1012,7 @@ def main() -> int:
     rows = phase_kernels(np.random.default_rng(0))
     launches = phase_discover()
     rows.update(phase_llm_kernels())
-    launches.update(phase_serve())      # pchase: its serve-run count
-    launches["mha_d256"] = 0            # no served config has head dim 256
+    launches.update(phase_serve())      # pchase, mha_d256: serve-run counts
     print(f"[smoke] all phases passed in {time.perf_counter() - t0:.1f}s")
 
     replaces = {

@@ -32,7 +32,8 @@ import torch
 from ._build import check_launch, load_library
 
 __all__ = ["BLOCK", "HEAD_DIMS", "SM90_HEAD_DIMS", "SM90_TILES", "NEG_INF",
-           "SOURCES", "LAUNCHES", "kernel_for", "flash_attention_kernel",
+           "SOURCES", "LAUNCHES", "SM90_LAUNCHES", "kernel_for",
+           "flash_attention_kernel",
            "flash_attention_plain", "flash_attention_sm90_plain"]
 
 BLOCK = 64                      # kBlock of csrc/flash_attention.cu
@@ -46,8 +47,10 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 SOURCES = {"sm90": "csrc/flash_attention_sm90.cu",
            "cuda_core": "csrc/flash_attention.cu"}
 # Launches of each kernel, raised where it is launched (``ops.mha`` counts
-# its calls, whichever kernel they take); ``ops.reset_launches`` zeroes them.
+# its calls, whichever kernel they take), and of the tensor-core kernel by
+# head dim; ``ops.reset_launches`` zeroes them.
 LAUNCHES = {name: 0 for name in SOURCES}
+SM90_LAUNCHES = {d: 0 for d in SM90_HEAD_DIMS}
 
 
 def kernel_for(dtype: torch.dtype, d: int) -> str:
@@ -75,6 +78,7 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          out.data_ptr(), b, hq, hkv, sq, sk, d, int(causal),
                          stream))
         LAUNCHES["sm90"] += 1
+        SM90_LAUNCHES[d] += 1
     else:
         check_launch(lib, "flash_attention_fwd", lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq,

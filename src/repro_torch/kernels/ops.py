@@ -16,7 +16,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from .flash_attention import (BLOCK, HEAD_DIMS, LAUNCHES,
+from .flash_attention import (BLOCK, HEAD_DIMS, LAUNCHES, SM90_LAUNCHES,
                               flash_attention_kernel, flash_attention_plain)
 from .pchase_probe import (eviction_batch_plain, eviction_kernel_batch,
                            pchase_batch_plain, pchase_kernel,
@@ -225,8 +225,9 @@ LLM_WRAPPERS = (mha, wkv6, pchase)
 
 def reset_launches() -> None:
     """Zero every wrapper's ``launches`` count and the attention kernels'
-    own counts (``flash_attention.LAUNCHES``)."""
+    own counts (``flash_attention.LAUNCHES`` and ``SM90_LAUNCHES``)."""
     for fn in WRAPPERS + LLM_WRAPPERS:
         fn.launches = 0
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, SM90_LAUNCHES):
+        for key in counts:
+            counts[key] = 0

@@ -249,6 +249,22 @@ def test_attention_kernel_counts_rise_only_where_a_kernel_launches():
     assert fa.LAUNCHES == {"sm90": 0, "cuda_core": 0}
 
 
+def test_tensor_core_counts_by_head_dim_rise_only_where_it_launches():
+    """The tensor-core kernel's count by head dim has one key for each head
+    dim it takes; ``ops.mha`` on the CPU moves none, ``reset_launches``
+    zeroes them."""
+    ops.reset_launches()
+    assert fa.SM90_LAUNCHES == {d: 0 for d in fa.SM90_HEAD_DIMS}
+    for d in fa.SM90_HEAD_DIMS:
+        _, (q, k, v) = _attn_inputs(1, 2, 1, 64, 64, d, "bfloat16", seed=2)
+        ops.mha(q, k, v)
+    assert ops.mha.launches == len(fa.SM90_HEAD_DIMS)
+    assert fa.SM90_LAUNCHES == {d: 0 for d in fa.SM90_HEAD_DIMS}
+    fa.SM90_LAUNCHES.update({128: 80, 256: 2})
+    ops.reset_launches()
+    assert fa.SM90_LAUNCHES == {d: 0 for d in fa.SM90_HEAD_DIMS}
+
+
 def _wkv_inputs(b, t, h, kd, vd, seed):
     rng = np.random.default_rng(seed)
     r = rng.standard_normal((b, t, h, kd), dtype=np.float32)
