@@ -20,7 +20,9 @@ to a plain version):
              whose summation order differs, at 2 MiB and at blocks of
              1001), with CUDA-event times and, for the stream kernels,
              ``torch.sum`` and ``torch.add``, the device time from
-             ``torch.profiler`` and the median host time of one call;
+             ``torch.profiler`` (the calls' device events told apart by
+             marker kernels, not by the host's clock) and the median host
+             time of one call;
 3. discover — ``discover_cuda()`` with its defaults on the card, its
              discrete attributes held to ``make_cuda_model().ground_truth()``
              and every probe kernel's launch count, read around this phase
@@ -45,8 +47,10 @@ to a plain version):
              from a second, warm run of one wave; that warm wave's prefill
              and decode split, and a third run of it under
              ``torch.profiler`` for the device-busy time and idle share of
-             each (split by the engine's ``serve.prefill`` and
-             ``serve.decode_step`` spans; qwen3-14b's prefill must show the
+             each (the device's events split into the prefill's and each
+             decode step's at a marker kernel queued after each sampling,
+             in the order the device ran them; qwen3-14b's prefill must
+             show the
              tensor-core attention kernel once a layer, and prints its
              device time there); then the smoke configs in f32 on the card
              (where the CUDA-core attention kernel runs) against the same
@@ -105,72 +109,121 @@ def event_ms(fn, reps: int = REPS) -> float:
     return statistics.median(times)
 
 
-PROFILER_SESSIONS = 3             # device_ms's tries at a whole session
+PROFILER_SESSIONS = 3             # tries at a whole profiler session
+SESSIONS = {"whole": 0, "retaken": 0}   # device_ms's sessions in this run
+MARK_CYCLES = 1000                # the marker kernel's spin
+LEAD_IN = 2                       # markers that open a session
 
 
-def _profiled(fns: dict, reps: int) -> dict:
-    """One ``torch.profiler`` session: for each label, one call in a span of
-    its own, then ``reps`` calls in the label's span, each span closed by a
-    synchronise.  Returns, by label, the device events (name, microseconds)
-    that start inside each of the two spans.  A short tail of other device
-    work closes the session: in sessions without it the last function's
-    device events were missing at times."""
-    from torch.profiler import ProfilerActivity, profile, record_function
+def mark() -> None:
+    """Queue the marker kernel (``torch.cuda._sleep``) on the current
+    stream.  The device events of a ``torch.profiler`` session are split at
+    the marker's, in the order the device started them, so no split
+    depends on where the profiler places device events on the host's clock
+    (in some sessions all of them fell into the first span)."""
+    torch.cuda._sleep(MARK_CYCLES)
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for label, (fn, _) in fns.items():
-            with record_function(f"device_ms:{label}:one"):
-                fn()
-                torch.cuda.synchronize()
-            with record_function(f"device_ms:{label}"):
-                for _ in range(reps):
-                    fn()
-                torch.cuda.synchronize()
-        tail = torch.zeros(1, device="cuda")
-        for _ in range(reps):
-            tail += 1
-        torch.cuda.synchronize()
-        time.sleep(0.05)
-    events = prof.events()
-    device = [e for e in events
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and not e.is_user_annotation]
 
-    def inside(span: str) -> list:
-        spans = [(e.time_range.start, e.time_range.end) for e in events
-                 if e.name == span
-                 and e.device_type == torch.autograd.DeviceType.CPU]
-        check(len(spans) == 1, f"device_ms: {len(spans)} spans {span}")
-        lo, hi = spans[0]
-        return [(e.name, e.time_range.elapsed_us()) for e in device
-                if lo <= e.time_range.start < hi]
+def _device_events(prof) -> list:
+    """(name, microseconds) of each kernel, copy and set the device ran in
+    ``prof``'s session, in the order it started them."""
+    events = sorted((e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and not e.is_user_annotation),
+                    key=lambda e: e.time_range.start)
+    return [(e.name, e.time_range.elapsed_us()) for e in events]
 
-    return {label: (inside(f"device_ms:{label}:one"),
-                    inside(f"device_ms:{label}")) for label in fns}
+
+_MARKER = []                      # the marker kernel's name, once seen
+
+
+def _marker_name() -> str:
+    """The name the profiler gives the marker kernel, from a session that
+    runs it alone (``LEAD_IN`` times, of which one may go unrecorded)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(PROFILER_SESSIONS):
+        if _MARKER:
+            break
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(LEAD_IN):
+                mark()
+            torch.cuda.synchronize()
+        names = [name for name, _ in _device_events(prof)]
+        if names and len(set(names)) == 1:
+            _MARKER.append(names[0])
+        else:
+            print(f"[device_ms] the marker alone gave device events {names}")
+    check(_MARKER, "device_ms: no session showed the marker kernel alone")
+    return _MARKER[0]
+
+
+def split_at_marks(events: list, marker: str) -> list:
+    """The device events between the marker's: one list more than there are
+    markers."""
+    parts = [[]]
+    for name, us in events:
+        if name == marker:
+            parts.append([])
+        else:
+            parts[-1].append((name, us))
+    return parts
+
+
+def marked_parts(events: list, marker: str, n: int) -> list | None:
+    """The last ``n`` parts between markers of a session that opened with
+    ``LEAD_IN`` markers and closed with one, or None when the session does
+    not hold them whole: fewer parts, or device work before them or after
+    the last marker.  The session's first device event is at times missing
+    from the profile, so it opens with markers that are not counted."""
+    parts = split_at_marks(events, marker)
+    if len(parts) < n + 1 or parts[-1] or any(parts[:-n - 1]):
+        return None
+    return parts[-n - 1:-1]
 
 
 def device_ms(fns: dict, reps: int = REPS) -> dict:
     """Device time of one call of each function of ``fns``, which maps a
     label to ``(fn, events)``: the sum of the kernels and copies
-    ``torch.profiler`` sees start inside the label's span (``reps`` calls,
-    after a warm-up), over ``reps``.  Host overhead between launches is left
-    out.  One call in a span of its own shows the device events a call
-    makes, which must number ``events`` where that is given (a kernel of the
-    port: one launch); the label's span must hold each of them ``reps``
-    times and nothing else.  A session in which a label's events fall short
-    of that, or hold others, is printed and yields no time; the next of
-    ``PROFILER_SESSIONS`` sessions is taken instead, and the run fails when
-    none is whole."""
+    ``torch.profiler`` sees the device run for ``reps`` calls (after a
+    warm-up), over ``reps``.  Host overhead between launches is left out.
+    In one session each label runs one call and then ``reps`` calls, each
+    part closed by the marker kernel.  The one call shows the device events
+    a call makes, which must number ``events`` where that is given (a kernel
+    of the port: one launch); the ``reps`` calls must hold each of them
+    ``reps`` times and nothing else, and nothing may run outside the
+    marked parts.  A session that falls short of that is printed and yields
+    no time; the next of ``PROFILER_SESSIONS`` sessions is taken instead,
+    and the run fails when none is whole."""
     from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
 
     for fn, _ in fns.values():
         fn()
     torch.cuda.synchronize()
+    marker = _marker_name()
     for attempt in range(1, PROFILER_SESSIONS + 1):
-        seen, faults = _profiled(fns, reps), []
-        for label, (_, events_per_call) in fns.items():
-            one, timed = seen[label]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(LEAD_IN):
+                mark()
+            for fn, _ in fns.values():
+                fn()
+                mark()
+                for _ in range(reps):
+                    fn()
+                mark()
+            torch.cuda.synchronize()
+        events, faults = _device_events(prof), []
+        parts = marked_parts(events, marker, 2 * len(fns))
+        if parts is None:
+            faults.append("parts between markers " + str(
+                [len(part) for part in split_at_marks(events, marker)]))
+            parts = [[]] * (2 * len(fns))
+        for i, (label, (_, events_per_call)) in enumerate(fns.items()):
+            one, timed = parts[2 * i], parts[2 * i + 1]
             per_call = Counter(name for name, _ in one)
             want = Counter({name: n * reps for name, n in per_call.items()})
             if (not one or (events_per_call is not None
@@ -183,8 +236,10 @@ def device_ms(fns: dict, reps: int = REPS) -> dict:
                     f"{dict(Counter(name[:60] for name, _ in timed))}, "
                     f"expected {events_per_call or 'as one call'} a call")
         if not faults:
-            return {label: sum(us for _, us in seen[label][1]) / reps / 1e3
-                    for label in fns}
+            SESSIONS["whole"] += 1
+            return {label: sum(us for _, us in parts[2 * i + 1]) / reps / 1e3
+                    for i, label in enumerate(fns)}
+        SESSIONS["retaken"] += 1
         print(f"[device_ms] profiler session {attempt} of "
               f"{PROFILER_SESSIONS} not whole, no time taken from it: "
               + "; ".join(faults))
@@ -791,52 +846,65 @@ TOP_KERNELS = 6
 def _profile_wave(arch: str, eng, prompts, unprofiled: dict) -> dict:
     """One more run of a warm wave under ``torch.profiler``: the device's
     busy time (the sum of its kernels and copies; one stream, so they do not
-    overlap) inside the engine's prefill span and inside its decode-step
-    spans, each against the unprofiled wave's wall for that part.  Each span
-    ends after its tokens reach the host, so the device work a span launched
-    lies inside its window.  Returns, for each part, the device events by
-    name: (microseconds, count)."""
+    overlap) in the prefill and in the decode steps, each against the
+    unprofiled wave's wall for that part.  The engine's prefill and each of
+    its decode steps end where the sampled tokens reach the host, so the
+    device is idle there: the marker kernel queued after each sampling
+    splits the device's events into the prefill's and each step's, in the
+    order the device ran them.  Returns, for each part, the device events
+    by name: (microseconds, count)."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        again = eng.generate_batch(prompts, SERVE["max_new"])
-        torch.cuda.synchronize()
+    marker = _marker_name()
+    sample = eng._sample
+
+    def sample_then_mark(logits, rng):
+        out = sample(logits, rng)
+        mark()
+        return out
+
+    eng._sample = sample_then_mark
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(LEAD_IN):
+                mark()
+            again = eng.generate_batch(prompts, SERVE["max_new"])
+            torch.cuda.synchronize()
+    finally:
+        del eng._sample
     check(np.array_equal(again, unprofiled["tokens"]),
           f"{arch}: the profiled wave gave other tokens")
-    events = prof.events()
-    windows = {name: [(e.time_range.start, e.time_range.end)
-                      for e in events if e.name == name
-                      and e.device_type == torch.autograd.DeviceType.CPU]
-               for name in SPANS}
-    check(len(windows["serve.prefill"]) == 1 and
-          len(windows["serve.decode_step"]) == SERVE["max_new"] - 1,
-          f"{arch}: spans {[(k, len(v)) for k, v in windows.items()]}")
-    device = [e for e in events
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and not e.is_user_annotation and e.name not in SPANS]
-    check(device, f"{arch}: the profiler saw no device work")
-    outside = len(device)
+    spans = {name: sum(e.name == name and e.device_type ==
+                       torch.autograd.DeviceType.CPU for e in prof.events())
+             for name in SPANS}
+    check(spans == {"serve.prefill": 1,
+                    "serve.decode_step": SERVE["max_new"] - 1},
+          f"{arch}: spans {spans}")
+    events = _device_events(prof)
+    steps = marked_parts(events, marker, SERVE["max_new"])
+    check(steps is not None and all(steps),
+          f"{arch}: device events in the parts between markers "
+          f"{[len(part) for part in split_at_marks(events, marker)]}, "
+          f"expected {SERVE['max_new']} parts that are not empty after the "
+          f"lead-in and none after the last marker")
     parts = {}
-    for name, part in zip(SPANS, ("prefill", "decode")):
-        mine = [e for e in device if any(lo <= e.time_range.start < hi
-                                         for lo, hi in windows[name])]
-        outside -= len(mine)
-        busy = sum(e.time_range.elapsed_us() for e in mine) / 1e6
+    for part, mine in (("prefill", steps[0]),
+                       ("decode", [ev for step in steps[1:] for ev in step])):
+        busy = sum(us for _, us in mine) / 1e6
         by_name = {}
-        for e in mine:
-            us, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+        for name, us_one in mine:
+            us, n = by_name.get(name, (0.0, 0))
+            by_name[name] = (us + us_one, n + 1)
         wall = unprofiled[part]
-        print(f"[profile] {arch} {part} (warm wave, {len(windows[name])} "
-              f"span(s)): wall {wall:.4f}s unprofiled; device busy "
-              f"{busy:.4f}s; idle share {1 - busy / wall:.3f}; device "
-              f"events {len(mine)}")
+        print(f"[profile] {arch} {part} (warm wave, "
+              f"{1 if part == 'prefill' else len(steps) - 1} part(s)): wall "
+              f"{wall:.4f}s unprofiled; device busy {busy:.4f}s; idle share "
+              f"{1 - busy / wall:.3f}; device events {len(mine)}")
         for kname, (us, n) in sorted(by_name.items(),
                                      key=lambda kv: -kv[1][0])[:TOP_KERNELS]:
             print(f"[profile]   {us / 1e3:9.3f} ms {n:6d}x {kname[:100]}")
         parts[part] = by_name
-    print(f"[profile] {arch}: {outside} device events outside the spans")
     return parts
 
 
@@ -1013,7 +1081,8 @@ def main() -> int:
     launches = phase_discover()
     rows.update(phase_llm_kernels())
     launches.update(phase_serve())      # pchase, mha_d256: serve-run counts
-    print(f"[smoke] all phases passed in {time.perf_counter() - t0:.1f}s")
+    print(f"[smoke] all phases passed in {time.perf_counter() - t0:.1f}s; "
+          f"device_ms profiler sessions {SESSIONS}")
 
     replaces = {
         "pchase_batch": "src/repro/kernels/pchase_probe.py:81",

@@ -149,21 +149,26 @@ def eviction_batch_plain(perms: torch.Tensor, evictors: torch.Tensor,
 # --------------------------------------------------------------------------
 # Pure-Python contracts
 # --------------------------------------------------------------------------
+def _add_i32(a: int, b: int) -> int:
+    """``a + b`` with int32 wrap-around, as the kernels add."""
+    return (a + b + 2**31) % 2**32 - 2**31
+
+
 def eviction_reference(perm, evictor, warm_steps: int,
                        probe_steps: int) -> tuple[int, int]:
     """Pure-Python two-phase walk: the contract for ``eviction_kernel_batch``."""
-    checksum = np.int32(0)
+    checksum = 0
     cursor = 0
     ev = np.asarray(evictor)
     for _ in range(int(warm_steps)):
         cursor = int(ev[cursor])
-        checksum = np.int32(checksum + np.int32(cursor))
+        checksum = _add_i32(checksum, cursor)
     p = np.asarray(perm)
     cursor = 0
     for _ in range(int(probe_steps)):
         cursor = int(p[cursor])
-        checksum = np.int32(checksum + np.int32(cursor))
-    return cursor, int(checksum)
+        checksum = _add_i32(checksum, cursor)
+    return cursor, checksum
 
 
 def pchase_reference(perm, steps: int) -> tuple[int, int]:
@@ -173,8 +178,8 @@ def pchase_reference(perm, steps: int) -> tuple[int, int]:
     """
     p = np.asarray(perm)
     cursor = 0
-    checksum = np.int32(0)
+    checksum = 0
     for _ in range(int(steps)):
         cursor = int(p[cursor])
-        checksum = np.int32(checksum + np.int32(cursor))
-    return cursor, int(checksum)
+        checksum = _add_i32(checksum, cursor)
+    return cursor, checksum

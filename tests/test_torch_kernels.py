@@ -315,3 +315,32 @@ def test_chip_smoke_fails_without_a_card_or_a_checkout(alone, tmp_path):
                           timeout=120)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_chip_smoke_splits_device_events_at_its_markers():
+    """The smoke run tells the device events of its calls apart by the
+    marker kernel between them, in the device's order, never by the host's
+    clock: each part holds what ran between two markers, and the parts
+    before the first and after the last are there (empty or not)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    events = [("mark", 1.0), ("k", 2.0), ("mark", 1.0), ("k", 2.5),
+              ("Memset", 0.5), ("k", 2.0), ("mark", 1.0), ("late", 3.0)]
+    assert smoke.split_at_marks(events, "mark") == [
+        [], [("k", 2.0)], [("k", 2.5), ("Memset", 0.5), ("k", 2.0)],
+        [("late", 3.0)]]
+    assert smoke.split_at_marks([], "mark") == [[]]
+    # a session opens with uncounted markers, of which one may be missing,
+    # and must end with one; its parts are counted from the end
+    session = [("mark", 1.0)] * smoke.LEAD_IN + events[1:-1]
+    for lead_lost in (0, 1):
+        got = smoke.marked_parts(session[lead_lost:], "mark", 2)
+        assert got == [[("k", 2.0)], [("k", 2.5), ("Memset", 0.5),
+                                      ("k", 2.0)]]
+    assert smoke.marked_parts(events, "mark", 2) is None      # after last
+    assert smoke.marked_parts(session[:-1], "mark", 2) is None
+    assert smoke.marked_parts([("k", 1.0)] + session, "mark", 2) is None
