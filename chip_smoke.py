@@ -13,7 +13,9 @@ to a plain version):
              each source's compile time and ptxas's registers and spills,
              and checks that every instantiation of the tensor-core
              attention kernel spills nothing and that the SASS of each
-             (d 256's on its own) holds wgmma (HGMMA) and TMA loads;
+             (d 256's on its own) holds wgmma (HGMMA) and TMA loads, and
+             that every instantiation of the two WKV6 kernels spills
+             nothing (their registers printed);
 2. kernels — each probe kernel, at the shapes discovery gives it, against
              its plain PyTorch version on the card (bit-exact for the chase,
              eviction and write kernels; rtol 1e-5 for the read kernel,
@@ -28,21 +30,22 @@ to a plain version):
              and every probe kernel's launch count, read around this phase
              alone, above zero;
 4. llm kernels — ``ops.mha`` (the tensor-core kernel for bf16 at head
-             dims 64, 128 and 256, the CUDA-core one for f32 and bf16 at
-             head dim 32), ``ops.wkv6`` and ``ops.pchase`` at the shapes the
+             dims 16, 32, 64, 128 and 256, the CUDA-core one for f32),
+             ``ops.wkv6`` (its two kernels, at T 512, T 500 and at the
+             model's strong decays) and ``ops.pchase`` at the shapes the
              serve phase gives them (and attention at head dim 256 also at
              paligemma-3b's head layout), against their plain versions
              (tolerances at each check; the tensor-core kernel also against
              the plain emulation of its own numerics), with CUDA-event
-             times, bounds and, for attention,
+             times, device times, bounds and, for attention,
              ``scaled_dot_product_attention`` as the library yardstick;
 5. serve   — ``repro_torch.launch.serve.main`` at full width and depth in
              bfloat16 for qwen3-14b, then rwkv6-3b (8 requests of 512
              tokens, 16 new tokens each, 4 slots): the launch counts read
              around each call alone (one ``mha`` or ``wkv6`` per layer and
              wave; every ``mha`` a launch of the tensor-core kernel at head
-             dim 128 and none at 256, counted by head dim where that kernel
-             launches), 16 tokens a request, finite
+             dim 128 and none at 16, 32, 64 or 256, counted by head dim
+             where that kernel launches), 16 tokens a request, finite
              logits, equal greedy tokens
              from a second, warm run of one wave; that warm wave's prefill
              and decode split, and a third run of it under
@@ -50,9 +53,9 @@ to a plain version):
              each (the device's events split into the prefill's and each
              decode step's at a marker kernel queued after each sampling,
              in the order the device ran them; qwen3-14b's prefill must
-             show the
-             tensor-core attention kernel once a layer, and prints its
-             device time there); then the smoke configs in f32 on the card
+             show the tensor-core attention kernel once a layer, rwkv6-3b's
+             each WKV6 kernel once a layer, and each prints their device
+             time there); then the smoke configs in f32 on the card
              (where the CUDA-core attention kernel runs) against the same
              weights on the CPU.
 
@@ -322,6 +325,7 @@ SM90_KERNELS = {d: f"flash_fwd_sm90_kernelILi{d}E" for d in (64, 128, 256)}
 
 def phase_build() -> None:
     from repro_torch.kernels._build import load_library
+    from repro_torch.kernels.rwkv6_scan import HEAD_SIZES, KERNELS
 
     t0 = time.perf_counter()
     _, info = load_library()
@@ -345,6 +349,18 @@ def phase_build() -> None:
         check(sass["functions"] == 1 and sass["HGMMA"] > 0
               and sass["UTMALDG"] > 0,
               f"flash_fwd_sm90_kernel<{d}> lacks wgmma or TMA loads: {sass}")
+    for kernel in KERNELS:
+        # the WKV6 pair: one instantiation a head size (K = V), no spills
+        mine = {int(re.search(rf"{kernel}ILi(\d+)E", name)[1]): props
+                for name, props in funcs.items() if f"{kernel}ILi" in name}
+        check(sorted(mine) == list(HEAD_SIZES)
+              and all(p.get("spill_bytes") == 0 for p in mine.values()),
+              f"{kernel}: ptxas reports {mine}, not one function without "
+              f"spills for each head size {HEAD_SIZES}")
+        print(f"[build] {kernel}<K>: registers "
+              + ", ".join(f"K {hs}: {p['registers']}" for hs, p in
+                          sorted(mine.items()))
+              + "; 0 spill bytes each")
 
 
 # --------------------------------------------------------------------------
@@ -610,12 +626,10 @@ WKV = dict(b=4, t=512, h=40, k=64, chunk=32)
 #   0.05 at N(0, 1) inputs, so an error of a tenth of one of them fails.
 # * sm90 at head dim 256 the same: its 64-key tiles change where the
 #   softmax rescales, not how p is rounded, and the emulation follows the
-#   tile (SM90_TILES).
-# * cuda_core, bf16 (head dims the tensor-core kernel does not take): p
-#   stays f32, so the output's one bf16 rounding and a small atol.
+#   tile (SM90_TILES).  At head dims 16 and 32 the same again: they run the
+#   d 64 instantiation, whose columns past d load as zeros and add nothing.
 # * cuda_core, f32: the online and the dense softmax sum in other orders.
 ATTN_TOL = {("sm90", torch.bfloat16): (2 ** -7, 2 ** -8),
-            ("cuda_core", torch.bfloat16): (2 ** -7, 2e-3),
             ("cuda_core", torch.float32): (2e-5, 2e-5)}
 ATTN_ATOL_SCALES_WITH_V = {"sm90": True, "cuda_core": False}
 SM90_EMULATION_TOL = (2 ** -7, 2 ** -10)       # atol in units of max|v|
@@ -626,7 +640,7 @@ OLD_BF16_ATOL = 2e-3
 # tensor-core kernel's half-empty query tile), head dim 64, bf16 at head
 # dim 256 (the tensor-core kernel's 64-key tiles) at the serving heads and
 # at paligemma-3b's (8 query heads on 1 kv head: 128 units for 132 SMs),
-# and bf16 at head dim 32 (the CUDA-core kernel in bf16).
+# and bf16 at head dims 32 and 16 (the d 64 instantiation, zeros past d).
 SERVE_HEADS = (ATTN["hq"], ATTN["hkv"])
 PALIGEMMA_HEADS = (8, 1)
 ATTN_CASES = ((torch.bfloat16, 512, True, 128, *SERVE_HEADS),
@@ -638,7 +652,8 @@ ATTN_CASES = ((torch.bfloat16, 512, True, 128, *SERVE_HEADS),
               (torch.bfloat16, 512, True, 64, *SERVE_HEADS),
               (torch.bfloat16, 512, True, 256, *SERVE_HEADS),
               (torch.bfloat16, 512, True, 256, *PALIGEMMA_HEADS),
-              (torch.bfloat16, 512, True, 32, *SERVE_HEADS))
+              (torch.bfloat16, 512, True, 32, *SERVE_HEADS),
+              (torch.bfloat16, 512, True, 16, *SERVE_HEADS))
 # WKV6 in f32: 64-term dot products and 32-step chunk sums in other
 # orders; errors scale with the largest output.
 WKV_RTOL = 1e-4
@@ -675,6 +690,7 @@ def phase_llm_kernels() -> dict:
         kernel_for)
     from repro_torch.kernels.pchase_probe import (pchase_plain,
                                                   pchase_reference)
+    from repro_torch.kernels.rwkv6_scan import KERNELS as WKV_KERNELS
     from repro_torch.kernels.rwkv6_scan import wkv6_plain
 
     gen = torch.Generator(device="cuda")
@@ -746,7 +762,7 @@ def phase_llm_kernels() -> dict:
         row = dict(shape=shape, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
                    bound_by=b_by, library_ms=l_ms, max_abs_err=err,
                    source=SOURCES[route])
-        if route == "sm90" and seq == ATTN["s"] and causal and d >= 128:
+        if route == "sm90" and seq == ATTN["s"] and causal:
             # the tensor-core kernel's device time beside SDPA's
             dev = device_ms({
                 "kernel": (lambda: ops.mha(q, k, v, causal=causal), 1),
@@ -759,18 +775,26 @@ def phase_llm_kernels() -> dict:
                   f"{b_ms / row['device_ms']:.3f} of the bound); "
                   f"scaled_dot_product_attention device_ms="
                   f"{row['library_device_ms']:.4f}")
-        if seq == ATTN["s"] and causal and hq == ATTN["hq"] and (
-                d == ATTN["d"] or (d, dtype) == (256, torch.bfloat16)):
-            rows[{(128, torch.bfloat16): "mha", (128, torch.float32):
-                  "mha_f32", (256, torch.bfloat16): "mha_d256"}[
-                      (d, dtype)]] = row
+        name = {(128, torch.bfloat16): "mha", (128, torch.float32):
+                "mha_f32", (256, torch.bfloat16): "mha_d256",
+                (32, torch.bfloat16): "mha_d32"}.get((d, dtype))
+        if seq == ATTN["s"] and causal and hq == ATTN["hq"] and name:
+            rows[name] = row
         del q, k, v, qt, kt, vt, got, want, diff
 
     b, h, kd, chunk = (WKV[x] for x in ("b", "h", "k", "chunk"))
-    for t in (WKV["t"], 500):
+    errs = []
+    for t, strong in ((WKV["t"], False), (500, False), (WKV["t"], True)):
         r, k, v = (randn(b, t, h, kd) for _ in range(3))
-        w = torch.rand((b, t, h, kd), generator=gen, device="cuda") \
-            * 0.93 + 0.05                              # decays in (0.05, 0.98)
+        if strong:
+            # the model's decays, w = exp(-exp(x)) (models/rwkv6.py), at
+            # x ~ U(-6, 2.5): w from 5e-6 to 0.9975, -L over a chunk in the
+            # hundreds, where e^{-L} overflows float32
+            x = torch.rand((b, t, h, kd), generator=gen, device="cuda")
+            w = torch.exp(-torch.exp(x * 8.5 - 6.0))
+        else:
+            w = torch.rand((b, t, h, kd), generator=gen, device="cuda") \
+                * 0.93 + 0.05                          # decays in (0.05, 0.98)
         u = randn(h, kd)
         y, st = ops.wkv6(r, k, v, w, u, chunk=chunk)
         torch.cuda.synchronize()
@@ -780,26 +804,46 @@ def phase_llm_kernels() -> dict:
                   for x in (r, k, v, w)]
         y_p, st_p = wkv6_plain(*padded, u, chunk)
         y_p = y_p[:, :t]
-        shape = f"B={b},T={t},H={h},K=V={kd},chunk={chunk},f32"
+        shape = (f"B={b},T={t},H={h},K=V={kd},chunk={chunk},f32"
+                 + (",strong decays" if strong else ""))
         err = max(float((y - y_p).abs().max()), float((st - st_p).abs().max()))
+        errs.append(err)
+        check(bool(torch.isfinite(y).all()) and bool(torch.isfinite(st).all()),
+              f"wkv6 {shape}: values that are not finite")
         for got, want, name in ((y, y_p, "y"), (st, st_p, "state")):
             atol = WKV_RTOL * float(want.abs().max())
             check(torch.allclose(got, want, rtol=WKV_RTOL, atol=atol),
                   f"wkv6 {shape}: {name} max_abs_err "
                   f"{float((got - want).abs().max())} beyond rtol {WKV_RTOL},"
                   f" atol {atol}")
+        if strong:
+            neg_l = float(-torch.log(w.double()).reshape(
+                b, t // chunk, chunk, h, kd).sum(2).min())
+            print(f"[llm] wkv6 {shape}: rtol {WKV_RTOL} ok (max_abs_err="
+                  f"{err:g}); finite; largest -L_C of a chunk {neg_l:.1f}")
+            del r, k, v, w, u, y, st, y_p, st_p, padded, x
+            continue
         k_ms = event_ms(lambda: ops.wkv6(r, k, v, w, u, chunk=chunk))
         p_ms = event_ms(lambda: wkv6_plain(*padded, u, chunk), reps=5)
         nbytes, n_ops = _wkv_work(b, t, h, kd, chunk)
         b_ms, b_by = bound_ms(nbytes, n_ops)
-        print(f"[llm] wkv6 {shape}: rtol {WKV_RTOL} ok (max_abs_err={err:g})"
-              f"; kernel_ms={k_ms:.4f} bound_ms={b_ms:.6f} ({b_by}) "
-              f"plain_ms={p_ms:.4f} library_ms=null")
+        device = ""
         if t == WKV["t"]:
+            # one call is the pair of kernels and nothing else (a ragged T
+            # adds the wrapper's padding: a fill and a copy a tensor)
+            dev = device_ms({"kernel": (
+                lambda: ops.wkv6(r, k, v, w, u, chunk=chunk),
+                len(WKV_KERNELS))})["kernel"]
+            device = (f" (device {dev:.4f}, {b_ms / dev:.3f} of the bound; "
+                      f"{'+'.join(WKV_KERNELS)})")
             rows["wkv6"] = dict(shape=shape, ms=k_ms, plain_ms=p_ms,
                                 bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                                max_abs_err=err)
+                                max_abs_err=err, device_ms=dev)
+        print(f"[llm] wkv6 {shape}: rtol {WKV_RTOL} ok (max_abs_err={err:g})"
+              f"; kernel_ms={k_ms:.4f}{device} bound_ms={b_ms:.6f} ({b_by}) "
+              f"plain_ms={p_ms:.4f} library_ms=null")
         del r, k, v, w, u, y, st, y_p, st_p, padded
+    rows["wkv6"]["max_abs_err"] = max(errs)
 
     rng = np.random.default_rng(1)
     n = 1 << 19
@@ -953,18 +997,20 @@ def _smoke_agreement(arch: str, overrides: dict) -> float:
 def phase_serve() -> dict:
     """Returns the kernels' launch counts read around the serve runs: the
     wrappers' (``mha`` counted as the tensor-core kernel's own launches at
-    head dim 128, ``mha_d256`` as its launches at head dim 256) and, as
-    ``mha_f32``, the CUDA-core attention kernel's launches in the f32 smoke
-    run."""
+    head dim 128, ``mha_d256`` and ``mha_d32`` as its launches at head dims
+    256 and 32) and, as ``mha_f32``, the CUDA-core attention kernel's
+    launches in the f32 smoke run."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import LAUNCHES as ATTN_LAUNCHES
     from repro_torch.kernels.flash_attention import SM90_LAUNCHES
+    from repro_torch.kernels.rwkv6_scan import KERNELS as WKV_KERNELS
     from repro_torch.launch import serve
 
     torch.backends.cuda.matmul.allow_tf32 = False    # full f32 (smoke check)
     waves = -(-SERVE["requests"] // SERVE["slots"])
-    launches = {"mha": 0, "wkv6": 0, "pchase": 0, "mha_d256": 0}
+    launches = {"mha": 0, "wkv6": 0, "pchase": 0, "mha_d256": 0,
+                "mha_d32": 0}
     for arch, kernel in (("qwen3-14b", "mha"), ("rwkv6-3b", "wkv6")):
         cfg = get_config(arch)
         ops.reset_launches()
@@ -979,14 +1025,15 @@ def phase_serve() -> dict:
               f"expected {want}")
         # every mha call of the bf16, head-dim-128 model is a launch of the
         # tensor-core kernel at head dim 128, counted where it launches; no
-        # served config has head dim 256
+        # served config has head dim 16, 32, 64 or 256
         want_routes = {"sm90": want["mha"], "cuda_core": 0}
-        want_by_d = {64: 0, 128: want["mha"], 256: 0}
+        want_by_d = {16: 0, 32: 0, 64: 0, 128: want["mha"], 256: 0}
         check(routes == want_routes and by_d == want_by_d,
               f"{arch}: attention kernel launches {routes}, by head dim "
               f"{by_d}; expected {want_routes}, {want_by_d}")
         counts["mha"] = by_d[128]
         counts["mha_d256"] = by_d[256]
+        counts["mha_d32"] = by_d[32]
         for name, count in counts.items():
             launches[name] += count
         check(all(o.shape == (SERVE["max_new"],) for o in res["outputs"]),
@@ -1028,6 +1075,23 @@ def phase_serve() -> dict:
                   f"warm wave's prefill, device time {sm90_ms:.4f} ms "
                   f"({sm90_ms / sm90:.4f} ms each), {sm90_ms / busy_ms:.4f} "
                   f"of the prefill's device busy time {busy_ms:.3f} ms")
+        else:
+            # the wave's prefill launched each WKV6 kernel once a layer, so
+            # the pair n_layers x len(WKV_KERNELS) times
+            busy_ms = sum(us for us, _ in parts["prefill"].values()) / 1e3
+            for wkv in WKV_KERNELS:
+                mine = [(us, n) for kname, (us, n) in parts["prefill"].items()
+                        if wkv in kname]
+                ran = sum(n for _, n in mine)
+                wkv_ms = sum(us for us, _ in mine) / 1e3
+                check(ran == cfg.n_layers,
+                      f"{arch}: {wkv} ran {ran} times in the warm wave's "
+                      f"prefill, expected {cfg.n_layers}")
+                print(f"[profile] {arch}: {wkv} {ran}x in the warm wave's "
+                      f"prefill, device time {wkv_ms:.4f} ms "
+                      f"({wkv_ms / ran:.4f} ms each), "
+                      f"{wkv_ms / busy_ms:.4f} of the prefill's device busy "
+                      f"time {busy_ms:.3f} ms")
         with torch.no_grad():
             logits, _ = eng.model.prefill(
                 eng.params, {"tokens": torch.as_tensor(
@@ -1093,6 +1157,7 @@ def main() -> int:
         "mha": "src/repro/kernels/flash_attention.py:78",
         "mha_f32": "src/repro/kernels/flash_attention.py:78",
         "mha_d256": "src/repro/kernels/flash_attention.py:78",
+        "mha_d32": "src/repro/kernels/flash_attention.py:78",
         "wkv6": "src/repro/kernels/rwkv6_scan.py:74",
     }
     sources = {
@@ -1106,7 +1171,7 @@ def main() -> int:
         "wkv6": ("cuda", "src/repro_torch/kernels/csrc/wkv6.cu"),
     }
     paths = {"mha": "serve qwen3-14b", "wkv6": "serve rwkv6-3b",
-             "pchase": None, "mha_d256": None,
+             "pchase": None, "mha_d256": None, "mha_d32": None,
              "mha_f32": "qwen3-14b-smoke f32 prefill on the card"}
     kernels = []
     for name, row in rows.items():

@@ -32,11 +32,11 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "pchase_batch": ((_P, _P, _P, _I, _I, _P), _I),
     "eviction_batch": ((_P, _P, _P, _P, _P, _I, _I, _I, _P), _I),
-    "flash_attention_fwd": ((_P,) * 4 + (_I,) * 8 + (_P,), _I),
+    "flash_attention_fwd": ((_P,) * 4 + (_I,) * 7 + (_P,), _I),
     "flash_attention_sm90_fwd": ((_P,) * 4 + (_I,) * 7 + (_P,), _I),
     "stream_read_fwd": ((_P,) * 4 + (_L, _L, _P), _I),
     "stream_write_fwd": ((_P, _P, _L, _P), _I),
-    "wkv6_fwd": ((_P,) * 7 + (_I,) * 6 + (_P,), _I),
+    "wkv6_fwd": ((_P,) * 8 + (_L,) + (_I,) * 6 + (_P,), _I),
     "probe_error_string": ((_I,), ctypes.c_char_p),
 }
 

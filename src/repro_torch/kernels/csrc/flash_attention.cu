@@ -7,20 +7,18 @@
 //
 // What it computes: o = softmax(q k^T / sqrt(d)) v per (batch, query head),
 // query head h reading kv head h / (Hq / Hkv), with the causal mask
-// row >= col counted from position 0.  Inputs are float32 or bfloat16 in
-// the model layout (B, S, H, d), contiguous; the output has q's dtype.  The
-// running max m, the running sum l and the accumulator stay in float32, as
-// in the Pallas kernel, and the probabilities are never rounded to the
-// input dtype.
+// row >= col counted from position 0.  Inputs are float32 in the model
+// layout (B, S, H, d), contiguous, and so is the output.  The running max
+// m, the running sum l and the accumulator stay in float32, as in the
+// Pallas kernel.
 //
-// Which inputs it takes: float32 at every head dim, and bfloat16 at the
-// head dims that csrc/flash_attention_sm90.cu (the tensor cores, wgmma fed
-// by TMA) does not instantiate; kernels/flash_attention.py kernel_for
-// chooses by dtype and head dim.
+// Which inputs it takes: float32 at every head dim; bfloat16 runs
+// csrc/flash_attention_sm90.cu (the tensor cores, wgmma fed by TMA) at
+// every head dim.  kernels/flash_attention.py kernel_for chooses by dtype.
 //
 // What bounds it on the H100: at the serving shapes (S = 512, d = 128) the
-// bytes bound (q, k, v read once, o written once) is some 15 us in bf16 and
-// 30 us in float32; the float32 operations bound is 160 us.  This kernel
+// bytes bound (q, k, v read once, o written once) is some 30 us; the
+// float32 operations bound is 160 us.  This kernel
 // runs on the CUDA cores in float32, so the float32 rate (67 TFLOP/s) and
 // the shared-memory traffic of its inner products bound it.
 //
@@ -42,7 +40,6 @@
 // cudaGetLastError() (cudaErrorInvalidValue for a shape it does not take).
 
 #include <cstdint>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -51,37 +48,21 @@ constexpr int kBlock = 64;      // query rows and kv rows per tile
 constexpr int kThreads = 256;
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
 // Copies a kBlock x D tile, whose rows lie `row_stride` elements apart
-// starting at `src`, into shared memory as float32 at row stride D + 1.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
+// starting at `src`, into shared memory at row stride D + 1.
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
                                           size_t row_stride) {
   for (int e = threadIdx.x; e < kBlock * D; e += kThreads) {
     const int r = e / D, c = e % D;
-    dst[r * (D + 1) + c] = to_float(src[r * row_stride + c]);
+    dst[r * (D + 1) + c] = src[r * row_stride + c];
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const T* q, const T* k, const T* v, T* o, int hq,
-                     int hkv, int sq, int sk, int causal) {
+    flash_fwd_kernel(const float* q, const float* k, const float* v,
+                     float* o, int hq, int hkv, int sq, int sk, int causal) {
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
   constexpr int kCols = D / 16;              // accumulator columns a thread
   extern __shared__ float smem[];
@@ -102,7 +83,7 @@ __global__ void __launch_bounds__(kThreads)
 
   const size_t q_row = static_cast<size_t>(hq) * D;
   const size_t kv_row = static_cast<size_t>(hkv) * D;
-  load_tile<T, D>(qs, q + (static_cast<size_t>(b) * sq + q0) * q_row +
+  load_tile<D>(qs, q + (static_cast<size_t>(b) * sq + q0) * q_row +
                           static_cast<size_t>(h) * D, q_row);
 
   float m_run[8], l_run[8];                  // rows warp * 8 + i
@@ -124,8 +105,8 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();                         // last tile's P.V is done
     const size_t kv_off = (static_cast<size_t>(b) * sk + k0) * kv_row +
                           static_cast<size_t>(hk) * D;
-    load_tile<T, D>(ks, k + kv_off, kv_row);
-    load_tile<T, D>(vs, v + kv_off, kv_row);
+    load_tile<D>(ks, k + kv_off, kv_row);
+    load_tile<D>(vs, v + kv_off, kv_row);
     __syncthreads();
 
     // scores: this thread's 4 x 4 patch of q k^T
@@ -213,60 +194,47 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = 0; i < 4; ++i) {
     const int row = ty + 16 * i;
     const float l = l_s[row];
-    T* orow = o + ((static_cast<size_t>(b) * sq + q0 + row) * hq + h) * D;
+    float* orow = o + ((static_cast<size_t>(b) * sq + q0 + row) * hq + h) * D;
 #pragma unroll
-    for (int j = 0; j < kCols; ++j)
-      orow[tx + 16 * j] = from_float<T>(acc[i][j] / l);
+    for (int j = 0; j < kCols; ++j) orow[tx + 16 * j] = acc[i][j] / l;
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int b,
            int hq, int hkv, int sq, int sk, int causal, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * (3 * kBlock * (D + 1) + kBlock * (kBlock + 1) +
                        2 * kBlock);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(sq / kBlock, hq, b);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), hq, hkv, sq, sk, causal);
+  flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), hq, hkv, sq, sk,
+      causal);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, int b,
-             int hq, int hkv, int sq, int sk, int d, int causal,
-             cudaStream_t stream) {
-  switch (d) {
-    case 16: return launch<T, 16>(q, k, v, o, b, hq, hkv, sq, sk, causal, stream);
-    case 32: return launch<T, 32>(q, k, v, o, b, hq, hkv, sq, sk, causal, stream);
-    case 64: return launch<T, 64>(q, k, v, o, b, hq, hkv, sq, sk, causal, stream);
-    case 128: return launch<T, 128>(q, k, v, o, b, hq, hkv, sq, sk, causal, stream);
-    case 256: return launch<T, 256>(q, k, v, o, b, hq, hkv, sq, sk, causal, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16.  q (b, sq, hq, d); k, v (b, sk, hkv, d);
-// o (b, sq, hq, d) in q's dtype.
+// float32 only.  q (b, sq, hq, d); k, v (b, sk, hkv, d); o (b, sq, hq, d).
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, int b, int hq,
                                    int hkv, int sq, int sk, int d, int causal,
-                                   int dtype, void* stream) {
+                                   void* stream) {
   if (hkv <= 0 || hq % hkv != 0 || sq % kBlock != 0 || sk % kBlock != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (b == 0 || hq == 0 || sq == 0) return static_cast<int>(cudaSuccess);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch<float>(q, k, v, o, b, hq, hkv, sq, sk, d, causal, s);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, k, v, o, b, hq, hkv, sq, sk, d, causal,
-                                   s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  switch (d) {
+    case 16: return launch<16>(q, k, v, o, b, hq, hkv, sq, sk, causal, s);
+    case 32: return launch<32>(q, k, v, o, b, hq, hkv, sq, sk, causal, s);
+    case 64: return launch<64>(q, k, v, o, b, hq, hkv, sq, sk, causal, s);
+    case 128: return launch<128>(q, k, v, o, b, hq, hkv, sq, sk, causal, s);
+    case 256: return launch<256>(q, k, v, o, b, hq, hkv, sq, sk, causal, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -3,10 +3,9 @@
 // Replaces the Pallas kernel of the reference package:
 //   flash_fwd_sm90_kernel <- repro/kernels/flash_attention.py flash_attention
 //                            (pallas_call at :94, body _kernel)
-// for bfloat16 inputs at head dims 64, 128 and 256; every other dtype and
-// head dim runs csrc/flash_attention.cu (CUDA cores).
-// kernels/flash_attention.py chooses between them by dtype and head dim
-// alone.
+// for bfloat16 inputs at head dims 16, 32, 64, 128 and 256; float32 runs
+// csrc/flash_attention.cu (CUDA cores).  kernels/flash_attention.py chooses
+// between them by dtype alone.
 //
 // What it computes: o = softmax(q k^T / sqrt(d)) v per (batch, query head),
 // query head h reading kv head h / (Hq / Hkv), with the causal mask
@@ -47,6 +46,12 @@
 //   the ring 2 x (32 + 32) KB and two 16 KB output tiles; at d = 256 Q
 //   64 KB, the ring 2 x (32 + 32) KB and two 16 KB output half-tiles,
 //   225 KB of the 227 KB a block may have.
+// * Head dims 16 and 32 run the d 64 instantiation on maps whose inner
+//   extent and row stride are the caller's d: a box of 64 columns reads
+//   zeros past column d, which add nothing to Q K^T or P V, and the store
+//   writes nothing past it.  The rows are 32 and 64 bytes apart, multiples
+//   of 16 as TMA requires.  Half or more of the tensor work is spent on
+//   the zeros; a tile of 32- or 64-byte swizzle would not be.
 // * S = Q K^T is wgmma m64nNk16 (N = kBN) with both operands in shared
 //   memory, K read K-major as it lies.  The online softmax runs on the
 //   accumulator fragment in registers; a row's max is reduced over the
@@ -718,14 +723,17 @@ bool make_map(CUtensorMap* map, const void* ptr, int d, int heads, int seq,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// D is the instantiation, d (<= D) the caller's head dim: the maps span d
+// columns, and the boxes' columns past d load as zeros.
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int b,
-           int hq, int hkv, int sq, int sk, int causal, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, int d,
+           int b, int hq, int hkv, int sq, int sk, int causal,
+           cudaStream_t stream) {
   CUtensorMap mq, mk, mv, mo;
-  if (!make_map(&mq, q, D, hq, sq, b, kBM) ||
-      !make_map(&mk, k, D, hkv, sk, b, Layout<D>::kBN) ||
-      !make_map(&mv, v, D, hkv, sk, b, Layout<D>::kBN) ||
-      !make_map(&mo, o, D, hq, sq, b, kBM / 2))
+  if (!make_map(&mq, q, d, hq, sq, b, kBM) ||
+      !make_map(&mk, k, d, hkv, sk, b, Layout<D>::kBN) ||
+      !make_map(&mv, v, d, hkv, sk, b, Layout<D>::kBN) ||
+      !make_map(&mo, o, d, hq, sq, b, kBM / 2))
     return static_cast<int>(cudaErrorInvalidValue);
   constexpr int smem = Layout<D>::kBytes;
   // per device, set once: the shared-memory opt-in and the SM count
@@ -749,7 +757,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
       static_cast<long long>((sq + kBM - 1) / kBM) * hq * b;
   if (units > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
   const int grid = static_cast<int>(units < sms[device] ? units : sms[device]);
-  const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(D));
+  const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(d));
   flash_fwd_sm90_kernel<D><<<grid, kThreads, smem, stream>>>(
       mq, mk, mv, mo, b, hq, hkv, sq, sk, causal, scale_log2);
   return static_cast<int>(cudaGetLastError());
@@ -758,7 +766,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
 }  // namespace
 
 // bfloat16 only.  q (b, sq, hq, d); k, v (b, sk, hkv, d); o (b, sq, hq, d);
-// d 64, 128 or 256; sq and sk multiples of 64; every pointer 16-byte aligned.
+// d 16, 32, 64, 128 or 256 (16 and 32 on the d 64 instantiation); sq and
+// sk multiples of 64; every pointer 16-byte aligned.
 extern "C" int flash_attention_sm90_fwd(const void* q, const void* k,
                                         const void* v, void* o, int b, int hq,
                                         int hkv, int sq, int sk, int d,
@@ -773,9 +782,11 @@ extern "C" int flash_attention_sm90_fwd(const void* q, const void* k,
   if (sk == 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 64: return launch<64>(q, k, v, o, b, hq, hkv, sq, sk, causal, s);
-    case 128: return launch<128>(q, k, v, o, b, hq, hkv, sq, sk, causal, s);
-    case 256: return launch<256>(q, k, v, o, b, hq, hkv, sq, sk, causal, s);
+    case 16: return launch<64>(q, k, v, o, d, b, hq, hkv, sq, sk, causal, s);
+    case 32: return launch<64>(q, k, v, o, d, b, hq, hkv, sq, sk, causal, s);
+    case 64: return launch<64>(q, k, v, o, d, b, hq, hkv, sq, sk, causal, s);
+    case 128: return launch<128>(q, k, v, o, d, b, hq, hkv, sq, sk, causal, s);
+    case 256: return launch<256>(q, k, v, o, d, b, hq, hkv, sq, sk, causal, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -2,14 +2,14 @@
 
 Two CUDA C++ kernels replace the reference's Pallas ``flash_attention``
 (``repro/kernels/flash_attention.py:78``); ``kernel_for`` picks one by dtype
-and head dim alone:
+alone:
 
-* ``csrc/flash_attention_sm90.cu`` for bfloat16 at ``SM90_HEAD_DIMS``: the
-  tensor cores (``wgmma`` on tiles that TMA loads), with the probabilities
-  rounded to bfloat16 for the P.V product, as the reference's f32 dot at
-  default precision does on the TPU's matrix unit;
-* ``csrc/flash_attention.cu`` for float32 and the other head dims: the CUDA
-  cores, all in float32.
+* ``csrc/flash_attention_sm90.cu`` for bfloat16 at every head dim of
+  ``HEAD_DIMS``: the tensor cores (``wgmma`` on tiles that TMA loads), with
+  the probabilities rounded to bfloat16 for the P.V product, as the
+  reference's f32 dot at default precision does on the TPU's matrix unit;
+  head dims 16 and 32 run its d 64 instantiation, zeros past column d;
+* ``csrc/flash_attention.cu`` for float32: the CUDA cores, all in float32.
 
 Each source's note says what bounds it and how it is laid out.  This module
 launches them and holds their plain PyTorch version.
@@ -38,11 +38,11 @@ __all__ = ["BLOCK", "HEAD_DIMS", "SM90_HEAD_DIMS", "SM90_TILES", "NEG_INF",
 
 BLOCK = 64                      # kBlock of csrc/flash_attention.cu
 HEAD_DIMS = (16, 32, 64, 128, 256)
-SM90_HEAD_DIMS = (64, 128, 256)  # instantiated in csrc/flash_attention_sm90.cu
-# keys a tile of the tensor-core kernel, by head dim: Layout<D>::kBN
-SM90_TILES = {64: 128, 128: 128, 256: 64}
+SM90_HEAD_DIMS = HEAD_DIMS      # csrc/flash_attention_sm90.cu's switch
+# keys a tile of the tensor-core kernel, by head dim: Layout<D>::kBN of the
+# instantiation the head dim runs on (d 16 and 32 run D = 64)
+SM90_TILES = {16: 128, 32: 128, 64: 128, 128: 128, 256: 64}
 NEG_INF = -1e30
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # kernel_for's answer -> the source of that kernel, under kernels/
 SOURCES = {"sm90": "csrc/flash_attention_sm90.cu",
            "cuda_core": "csrc/flash_attention.cu"}
@@ -55,8 +55,8 @@ SM90_LAUNCHES = {d: 0 for d in SM90_HEAD_DIMS}
 
 def kernel_for(dtype: torch.dtype, d: int) -> str:
     """Which kernel takes inputs of ``dtype`` at head dim ``d``: ``"sm90"``
-    (tensor cores) for bfloat16 at ``SM90_HEAD_DIMS``, else ``"cuda_core"``.
-    The choice depends on nothing else."""
+    (tensor cores) for bfloat16 at ``SM90_HEAD_DIMS``, else ``"cuda_core"``
+    (float32).  The choice depends on nothing else."""
     return ("sm90" if dtype == torch.bfloat16 and d in SM90_HEAD_DIMS
             else "cuda_core")
 
@@ -82,7 +82,7 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     else:
         check_launch(lib, "flash_attention_fwd", lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq,
-            hkv, sq, sk, d, int(causal), _DTYPE_CODES[q.dtype], stream))
+            hkv, sq, sk, d, int(causal), stream))
         LAUNCHES["cuda_core"] += 1
     return out
 

@@ -106,10 +106,10 @@ def test_mha_pads_a_ragged_causal_prompt_exactly(sq, sk, dtype):
 
 @pytest.mark.parametrize("dtype,d,want", [
     (torch.bfloat16, 128, "sm90"), (torch.bfloat16, 64, "sm90"),
-    (torch.bfloat16, 16, "cuda_core"), (torch.bfloat16, 32, "cuda_core"),
+    (torch.bfloat16, 16, "sm90"), (torch.bfloat16, 32, "sm90"),
     (torch.bfloat16, 256, "sm90"), (torch.float32, 64, "cuda_core"),
     (torch.float32, 128, "cuda_core"), (torch.float32, 256, "cuda_core")])
-def test_kernel_for_picks_tensor_cores_for_bf16_at_64_128_and_256(dtype, d,
+def test_kernel_for_picks_tensor_cores_for_bf16_at_every_head_dim(dtype, d,
                                                                   want):
     assert fa.kernel_for(dtype, d) == want
     assert fa.SOURCES[want].startswith("csrc/")
@@ -119,26 +119,39 @@ def _csrc(name: str) -> str:
     return (pathlib.Path(fa.__file__).parent / "csrc" / name).read_text()
 
 
+def _sm90_instantiations() -> dict:
+    """Head dim -> the ``launch<D>`` its case of the entry point's switch
+    runs."""
+    src = _csrc("flash_attention_sm90.cu")
+    return {int(d): int(inst) for d, inst in
+            re.findall(r"case (\d+): return launch<(\d+)>", src)}
+
+
 def test_sm90_head_dims_are_the_ones_its_source_instantiates():
     """The dispatch never routes a head dim to the tensor-core entry point
-    that its switch would refuse, and both tiles agree with ``BLOCK``."""
+    that its switch would refuse; each head dim runs an instantiation at
+    least as wide (16 and 32 on the d 64 one, zeros past column d), and both
+    tiles agree with ``BLOCK``."""
     src = _csrc("flash_attention_sm90.cu")
-    cases = re.findall(r"case (\d+): return launch<(\d+)>", src)
-    assert sorted(int(a) for a, b in cases if a == b) == \
-        sorted(fa.SM90_HEAD_DIMS)
+    inst = _sm90_instantiations()
+    assert sorted(inst) == sorted(fa.SM90_HEAD_DIMS)
+    assert {d: inst[d] for d in (16, 32)} == {16: 64, 32: 64}
+    assert all(inst[d] == d for d in (64, 128, 256))
     assert "sq % 64 != 0 || sk % 64 != 0" in src and fa.BLOCK == 64
     assert set(fa.SM90_HEAD_DIMS) <= set(fa.HEAD_DIMS)
 
 
 def test_sm90_tiles_are_the_ones_its_layout_gives_each_head_dim():
     """The plain emulation rescales where the kernel does: every
-    ``SM90_TILES[d]`` keys, which is ``Layout<D>::kBN`` in the source."""
+    ``SM90_TILES[d]`` keys, which is ``Layout<D>::kBN`` in the source for
+    the instantiation D that head dim d runs on."""
     src = _csrc("flash_attention_sm90.cu")
     (above, big, small), = re.findall(
         r"static constexpr int kBN = D > (\d+) \? (\d+) : (\d+);", src)
+    inst = _sm90_instantiations()
     assert set(fa.SM90_TILES) == set(fa.SM90_HEAD_DIMS)
     for d, tile in fa.SM90_TILES.items():
-        assert tile == (int(big) if d > int(above) else int(small)), d
+        assert tile == (int(big) if inst[d] > int(above) else int(small)), d
     assert fa.SM90_TILES[256] == 64
 
 
@@ -146,7 +159,10 @@ def test_sm90_tiles_are_the_ones_its_layout_gives_each_head_dim():
     (1, 4, 2, 192, 128, True),       # a multiple of 64 that is not of 128
     (2, 2, 1, 128, 64, False),
     (1, 2, 1, 128, 256, True),
-], ids=["d128-causal-S192", "d64-full", "d256-causal"])
+    (1, 4, 2, 128, 32, True),
+    (2, 2, 1, 128, 16, False),
+], ids=["d128-causal-S192", "d64-full", "d256-causal", "d32-causal",
+        "d16-full"])
 def test_mha_bf16_at_the_tensor_core_head_dims_matches_pallas(b, hq, hkv, s,
                                                               d, causal):
     (jq, jk, jv), (tq, tk, tv) = _attn_inputs(b, hq, hkv, s, s, d, "bfloat16",
@@ -230,6 +246,30 @@ def test_sm90_plain_matches_the_tiled_emulation(hq, hkv, s, causal, d, tile):
                      for x in (k, v)), causal, tile=tile)
     assert got.dtype == torch.bfloat16 and got.shape == q.shape
     atol = 2 ** -10 * float(v.float().abs().max())
+    diff = (got.float() - want.float()).abs()
+    assert bool((diff <= 2 ** -7 * want.float().abs() + atol).all())
+
+
+@pytest.mark.parametrize("d,causal", [(16, True), (32, True), (32, False)],
+                         ids=["d16-causal", "d32-causal", "d32-full"])
+def test_sm90_plain_at_the_narrow_head_dims_matches_the_plain_version(d,
+                                                                      causal):
+    """At head dims 16 and 32 the tensor-core kernel runs its d 64
+    instantiation, the columns past d zero, so its numerics are the emulation
+    with ``SM90_TILES[d]`` = 128-key tiles and 1/sqrt(d) scores: within rtol
+    2**-7, atol 2**-8 max|v| of the float32 plain version (the tolerance
+    ``chip_smoke.py`` holds the kernel to), at the serving heads' grouping
+    and length."""
+    rng = np.random.default_rng(d + int(causal))
+    q = torch.from_numpy(rng.standard_normal((1, 512, 8, d),
+                                             dtype=np.float32)).bfloat16()
+    k, v = (torch.from_numpy(rng.standard_normal((1, 512, 2, d),
+                                                 dtype=np.float32))
+            .bfloat16() for _ in range(2))
+    got = fa.flash_attention_sm90_plain(q, k, v, causal)
+    want = fa.flash_attention_plain(q, k, v, causal)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    atol = 2 ** -8 * float(v.float().abs().max())
     diff = (got.float() - want.float()).abs()
     assert bool((diff <= 2 ** -7 * want.float().abs() + atol).all())
 
