@@ -16,21 +16,34 @@ to a plain version):
              (d 256's on its own) holds wgmma (HGMMA) and TMA loads, and
              that every instantiation of the two WKV6 kernels spills
              nothing (their registers printed);
-2. kernels — each probe kernel, at the shapes discovery gives it, against
-             its plain PyTorch version on the card (bit-exact for the chase,
-             eviction and write kernels; rtol 1e-5 for the read kernel,
-             whose summation order differs, at 2 MiB and at blocks of
-             1001), with CUDA-event times and, for the stream kernels,
-             ``torch.sum`` and ``torch.add``, the device time from
-             ``torch.profiler`` (the calls' device events told apart by
-             marker kernels, not by the host's clock) and the median host
-             time of one call;
+2. kernels — first the floor: ``chase_floor`` (one thread, dependent
+             loads with nothing else on the chain) at footprints from 4 KiB
+             to 256 MiB, with ``nvidia-smi``'s SM clock and power beside
+             it, which gives each level's ns and cycles a load and the L1
+             capacity a kernel without shared memory gets; then what sits
+             between one load of a chain and the next in the SASS of the
+             chase kernels and the floor; then each probe kernel, at the
+             shapes discovery gives it, against its plain PyTorch version
+             on the card (bit-exact for the chase and eviction kernels, also
+             at chain lengths 7 and 6143, which straddle their unroll of 8,
+             and cursor -1 for rows that load a value outside [0, N); exact
+             for the write kernel; rtol 1e-5 for the read kernel, whose
+             summation order differs, at 2 MiB and at blocks of 1001), with
+             CUDA-event times and device times from ``torch.profiler`` (the
+             calls' device events told apart by marker kernels, not by the
+             host's clock); the chase rows' ns and cycles a load beside the
+             floor and their latency bound (steps times the floor of the
+             level their footprint lives in); for the stream kernels
+             ``torch.sum`` and ``torch.add`` and the median host time of
+             one call;
 3. discover — ``discover_cuda()`` with its defaults on the card, its
              discrete attributes held to ``make_cuda_model().ground_truth()``
-             and every probe kernel's launch count, read around this phase
-             alone, above zero;
+             and its launches, read around this phase alone, to 876, 13, 8
+             and 8; per-family seconds, and per family the runner's
+             request/calibration wall ratios and the rows whose two
+             footprints straddle the L1 capacity;
 4. llm kernels — ``ops.mha`` (the tensor-core kernel for bf16 at head
-             dims 16, 32, 64, 128 and 256, the CUDA-core one for f32),
+             dims 16, 32, 64, 80, 128 and 256, the CUDA-core one for f32),
              ``ops.wkv6`` (its two kernels, at T 512, T 500 and at the
              model's strong decays) and ``ops.pchase`` at the shapes the
              serve phase gives them (and attention at head dim 256 also at
@@ -44,7 +57,7 @@ to a plain version):
              tokens, 16 new tokens each, 4 slots): the launch counts read
              around each call alone (one ``mha`` or ``wkv6`` per layer and
              wave; every ``mha`` a launch of the tensor-core kernel at head
-             dim 128 and none at 16, 32, 64 or 256, counted by head dim
+             dim 128 and none at 16, 32, 64, 80 or 256, counted by head dim
              where that kernel launches), 16 tokens a request, finite
              logits, equal greedy tokens
              from a second, warm run of one wave; that warm wave's prefill
@@ -54,8 +67,10 @@ to a plain version):
              decode step's at a marker kernel queued after each sampling,
              in the order the device ran them; qwen3-14b's prefill must
              show the tensor-core attention kernel once a layer, rwkv6-3b's
-             each WKV6 kernel once a layer, and each prints their device
-             time there); then the smoke configs in f32 on the card
+             each WKV6 kernel once a layer, a profiled wave that falls short
+             of its parts or of those counts is run again, up to three, and
+             each prints their device time there); then the smoke configs
+             in f32 on the card
              (where the CUDA-core attention kernel runs) against the same
              weights on the CPU.
 
@@ -279,6 +294,267 @@ def bound_ms(nbytes: float, ops: float,
 
 
 # --------------------------------------------------------------------------
+# The latency floor: what one dependent load costs at each cache level
+# --------------------------------------------------------------------------
+KIB, MIB = 1 << 10, 1 << 20
+# Footprints at which ``chase_floor`` times dependent loads: two that sit in
+# any L1, a sweep that finds the L1 capacity a kernel without shared memory
+# gets (at most the SM's 256 KB), two in L2 and one far past it.
+LEVEL_FOOTPRINTS = {"L1": (4 * KIB, 64 * KIB), "L2": (2 * MIB, 32 * MIB),
+                    "HBM": (256 * MIB,)}
+L1_SWEEP = tuple(k * KIB for k in (128, 160, 192, 208, 216, 224, 232, 240,
+                                   256, 320))
+FLOOR_ROUNDS = 64                # x FLOOR_UNROLL = 16384 timed loads a launch
+FLOOR_LAUNCHES = 3               # the median of these is the floor
+FLOOR_SLOTS = 1 << 18            # most slots on a floor's chain
+L1_KNEE = 1.25                   # L1-resident: within this of the 4 KiB floor
+SMI_SAMPLE = ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit",
+              "--format=csv,noheader"]
+
+
+def floor_chain(footprint: int, rng,
+                stride: int | None = None) -> tuple[np.ndarray, int]:
+    """A single cycle over ``footprint`` bytes for ``chase_floor``: slots
+    ``stride`` bytes apart (by default one line, 128 B, wider where that
+    would pass ``FLOOR_SLOTS``), in a random order from slot 0.  Returns the
+    (footprint / 4,) int32 chain and the slots on its cycle."""
+    from repro_torch.core.probes.runners import random_cycle
+
+    stride = stride or max(128, footprint // FLOOR_SLOTS)
+    slots, step = footprint // stride, stride // 4
+    chain = np.zeros(footprint // 4, dtype=np.int32)
+    chain[np.arange(slots) * step] = random_cycle(slots, rng) * step
+    return chain, slots
+
+
+def smi_beside(fn) -> dict:
+    """``nvidia-smi``'s SM clock (MHz), power draw and limit (W), read while
+    ``fn`` runs again and again on the card."""
+    proc = subprocess.Popen(SMI_SAMPLE, stdout=subprocess.PIPE, text=True)
+    while proc.poll() is None:
+        fn()
+        torch.cuda.synchronize()
+    clock, draw, limit = (float(x.split()[0]) for x in
+                          proc.stdout.read().strip().split(","))
+    return {"clocks_sm_mhz": clock, "power_draw_w": draw,
+            "power_limit_w": limit}
+
+
+def level_of(footprints, l1_bytes: int, l2_bytes: int) -> list[str]:
+    """The level each row of one launch lives in: L1 when the row alone fits
+    an SM's L1 (each row runs on an SM of its own), else L2 when the rows
+    past L1 fit the L2 together, else HBM."""
+    fp = [int(f) for f in footprints]
+    spilled = sum(f for f in fp if f > l1_bytes)
+    outer = "L2" if spilled <= l2_bytes else "HBM"
+    return ["L1" if f <= l1_bytes else outer for f in fp]
+
+
+def latency_bound_ms(steps, footprints, floors: dict, l1_bytes: int,
+                     l2_bytes: int) -> tuple[float, str]:
+    """The least time of one launch of chase rows: each row's steps times
+    the floor (ns a load) of the level its footprint lives in, and the
+    launch as long as its longest row.  Returns ms and that row's level."""
+    levels = level_of(footprints, l1_bytes, l2_bytes)
+    ns = [int(s) * floors[lv] for s, lv in zip(steps, levels)]
+    worst = int(np.argmax(ns))
+    return ns[worst] / 1e6, levels[worst]
+
+
+def eviction_bound_ms(warm, probe, evictor_bytes, probe_bytes, floors: dict,
+                      l1_bytes: int, l2_bytes: int) -> tuple[float, str]:
+    """The least time of one launch of eviction rows: each row's warm steps
+    at the level of its evictor and its probe steps at the level of its
+    probe row (each phase's rows placed as ``level_of`` places them), the
+    launch as long as its longest row.  Returns ms and that row's levels."""
+    warm_lv = level_of(evictor_bytes, l1_bytes, l2_bytes)
+    probe_lv = level_of(probe_bytes, l1_bytes, l2_bytes)
+    ns = [int(w) * floors[a] + int(p) * floors[b]
+          for w, p, a, b in zip(warm, probe, warm_lv, probe_lv)]
+    worst = int(np.argmax(ns))
+    return ns[worst] / 1e6, f"{warm_lv[worst]}+{probe_lv[worst]}"
+
+
+def floor_table(rng) -> dict:
+    """``chase_floor`` at every footprint of ``LEVEL_FOOTPRINTS`` and
+    ``L1_SWEEP`` (the median of ``FLOOR_LAUNCHES`` launches of each variant,
+    ``nvidia-smi`` read beside the plain one).  Returns the floor of each
+    level (ns a load, the least of its footprints' plain floors), the L1
+    capacity (the largest footprint whose floor stays within ``L1_KNEE`` of
+    the 4 KiB one), the L2 capacity (the card's), the table and the floor of
+    a cold 4 KiB row of discovery's 4-byte slots."""
+    from repro_torch.kernels.pchase_probe import (FLOOR_UNROLL,
+                                                  FLOOR_VARIANTS, chase_floor)
+
+    footprints = sorted({f for fps in LEVEL_FOOTPRINTS.values() for f in fps}
+                        | set(L1_SWEEP))
+    table = {}
+    print("[floor] footprint: per load, by what sits on the chain besides "
+          "the load (" + ", ".join(FLOOR_VARIANTS) + "): ns (SM cycles); "
+          "SM GHz from clock64 over %globaltimer; nvidia-smi beside")
+    for fp in footprints:
+        chain, slots = floor_chain(fp, rng)
+        c_t = torch.from_numpy(chain).cuda()
+        row = {}
+        for variant in FLOOR_VARIANTS:
+            runs = [chase_floor(c_t, warm=slots, rounds=FLOOR_ROUNDS,
+                                variant=variant)
+                    for _ in range(FLOOR_LAUNCHES)]
+            row[variant] = {key: statistics.median(r[key] for r in runs)
+                            for key in ("ns", "cycles", "ghz")}
+        row["smi"] = smi_beside(lambda: chase_floor(
+            c_t, warm=slots, rounds=FLOOR_ROUNDS))
+        table[fp] = row
+        print(f"[floor] {fp / KIB:9.0f} KiB ({slots} slots): " + "; ".join(
+            f"{v} {row[v]['ns']:.3f} ns ({row[v]['cycles']:.2f} cyc)"
+            for v in FLOOR_VARIANTS)
+            + f"; {row['load']['ghz']:.4f} GHz; smi "
+            f"{row['smi']['clocks_sm_mhz']:.0f} MHz, "
+            f"{row['smi']['power_draw_w']:.2f} W of "
+            f"{row['smi']['power_limit_w']:.2f} W")
+        del c_t
+    base = table[min(footprints)]["load"]["ns"]
+    l1_bytes = max(fp for fp in footprints
+                   if all(table[f]["load"]["ns"] <= L1_KNEE * base
+                          for f in footprints if f <= fp))
+    over = min(fp for fp in footprints if fp > l1_bytes)
+    l2_bytes = torch.cuda.get_device_properties(0).L2_cache_size
+    floors = {lv: min(table[fp]["load"]["ns"] for fp in fps)
+              for lv, fps in LEVEL_FOOTPRINTS.items()}
+    cycles = {lv: min(table[fp]["load"]["cycles"] for fp in fps)
+              for lv, fps in LEVEL_FOOTPRINTS.items()}
+    # the chase rows' own start: a 4 KiB row of discovery's dense slots, 4 B
+    # apart, walked STEPS loads from a cold L1 (no warm pass), as each
+    # launch of a chase kernel finds it
+    chain, _ = floor_chain(4 * KIB, rng, stride=4)
+    c_t = torch.from_numpy(chain).cuda()
+    runs = [chase_floor(c_t, warm=0, rounds=STEPS // FLOOR_UNROLL)
+            for _ in range(FLOOR_LAUNCHES)]
+    cold = {key: statistics.median(r[key] for r in runs)
+            for key in ("ns", "cycles")}
+    print(f"[floor] 4 KiB of 4-byte slots, {STEPS} loads from a cold L1: "
+          f"{cold['ns']:.3f} ns ({cold['cycles']:.2f} cyc) a load")
+    check(l1_bytes < 2 * MIB and floors["L1"] < floors["L2"]
+          and floors["L1"] < floors["HBM"],
+          f"floor: levels not told apart: {floors}, L1 {l1_bytes}")
+    print(f"[floor] L1 capacity {l1_bytes / KIB:.0f} KiB (floor "
+          f"{table[l1_bytes]['load']['ns']:.3f} ns just under; "
+          f"{table[over]['load']['ns']:.3f} ns at {over / KIB:.0f} KiB, just "
+          f"over); L2 {l2_bytes / MIB:.0f} MiB (the card's); floors a load: "
+          + ", ".join(f"{lv} {floors[lv]:.3f} ns ({cycles[lv]:.2f} cyc)"
+                      for lv in floors))
+    return {"floors": floors, "cycles": cycles, "l1_bytes": l1_bytes,
+            "l2_bytes": l2_bytes, "table": table, "cold": cold}
+
+
+def _instructions(sass: str) -> list[tuple]:
+    """(address, guard predicate or "", opcode, operands) of each
+    instruction of one function's SASS."""
+    out = []
+    for addr, text in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*?)\s*;", sass):
+        guard = ""
+        if text.startswith("@"):
+            guard, text = text.split(None, 1)
+        op, _, rest = text.partition(" ")
+        operands = [x.strip() for x in rest.split(",")] if rest.strip() else []
+        out.append((int(addr, 16), guard, op, operands))
+    return out
+
+
+_NO_DEST = ("ST", "BRA", "EXIT", "BSYNC", "BSSY", "NOP", "RED", "WARPSYNC",
+            "BAR", "CALL", "RET", "MEMBAR", "FENCE", "CCTL", "ERRBAR", "YIELD")
+
+
+def _regs(operand: str, pair: bool = False) -> set:
+    """The registers an operand names (a 64-bit one as its pair)."""
+    regs = set()
+    for name, num, wide in re.findall(r"\b(U?R|U?P)(\d+)(\.64)?", operand):
+        regs.add(f"{name}{num}")
+        if (wide or pair) and name.endswith("R"):
+            regs.add(f"{name}{int(num) + 1}")
+    return regs
+
+
+def _reads_writes(guard: str, op: str, operands: list) -> tuple[set, set]:
+    wide = ".WIDE" in op or op.endswith(".64") or op == "CS2R"
+    reads = _regs(guard)
+    if op.startswith(_NO_DEST) or not operands:
+        for x in operands:
+            reads |= _regs(x)
+        return reads, set()
+    writes = _regs(operands[0], pair=wide)
+    srcs = operands[1:]
+    if srcs and re.fullmatch(r"!?P\d|PT", srcs[0]):
+        writes |= _regs(srcs[0])            # a second predicate or carry out
+        srcs = srcs[1:]
+    for i, x in enumerate(srcs):
+        reads |= _regs(x, pair=wide and i == len(srcs) - 1 and "IMAD" in op)
+    return reads, writes
+
+
+def load_chains(sass: str) -> list[tuple]:
+    """For each load (LDG) whose value forms the address of a later load,
+    the instructions between the two that depend on the first: their
+    opcodes, in order, following a loop's back branch once."""
+    ins = _instructions(sass)
+    index = {addr: i for i, (addr, *_) in enumerate(ins)}
+    loops = [(index.get(int(m[1], 16)), i)
+             for i, (_, _, op, operands) in enumerate(ins)
+             if op.startswith("BRA") and operands
+             and (m := re.match(r"(0x[0-9a-f]+)", operands[0]))
+             and int(m[1], 16) < ins[i][0]]
+    chains = []
+    for i, (_, guard, op, operands) in enumerate(ins):
+        if not op.startswith("LDG"):
+            continue
+        tainted = _reads_writes(guard, op, operands)[1]
+        on_chain, j, wrapped = [], i + 1, False
+        for _ in range(400):
+            if j >= len(ins) or ins[j][2].startswith("EXIT"):
+                break
+            g, o, args = ins[j][1:]
+            reads, writes = _reads_writes(g, o, args)
+            if o.startswith("LDG"):
+                if reads & tainted:
+                    chains.append(tuple(on_chain))
+                    break
+                tainted -= writes
+            elif reads & tainted:
+                on_chain.append(o)
+                tainted |= writes
+            else:
+                tainted -= writes
+            back = [top for top, end in loops
+                    if end == j and top is not None and top <= i]
+            if back and not wrapped:
+                j, wrapped = back[0], True
+            else:
+                j += 1
+    return chains
+
+
+def sass_chains(lib_path, kernels) -> dict:
+    """``load_chains`` of each function of the library whose name holds one
+    of ``kernels``, counted: {function: Counter(chain -> loads)}."""
+    from collections import Counter
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    sass = subprocess.run(
+        [os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass", str(lib_path)],
+        capture_output=True, text=True, check=True).stdout
+    found = {}
+    for part in sass.split("Function : ")[1:]:
+        name = part.splitlines()[0].strip()
+        label = next((k for k in kernels if k in name), None)
+        if label is not None:
+            variant = re.search(r"ILi(\d+)E", name)
+            key = label + (f"<{variant[1]}>" if variant else "")
+            found[key] = Counter(load_chains(part))
+    return found
+
+
+# --------------------------------------------------------------------------
 # Phase 1: build
 # --------------------------------------------------------------------------
 def _sass_counts(lib_path, kernel: str) -> dict:
@@ -382,13 +658,52 @@ def _wrapping_row(n: int, rng) -> np.ndarray:
     return row
 
 
-def _chase_touched(steps: np.ndarray, cycle_len: int) -> int:
-    """Distinct slots the rows' chains read: min(steps, cycle) each."""
-    return int(np.minimum(steps.astype(np.int64), cycle_len).sum())
+def _leaving_row(row: np.ndarray, at: int, value: int) -> np.ndarray:
+    """A copy of a single-cycle row whose chain loads ``value`` at load
+    ``at`` (counted from 0): the slot that load reads holds it."""
+    slot = 0
+    for _ in range(at):
+        slot = int(row[slot])
+    bad = row.copy()
+    bad[slot] = value
+    return bad
 
 
-def phase_kernels(rng) -> dict:
+CHASE_SHAPES = ((1, 10), (64, 10), (1, 19), (64, 19))   # (R, log2 N)
+UNROLL_STEPS = (7, 6143)        # chain lengths off the walk's unroll of 8
+CHASE_KERNELS = ("pchase_batch_kernel", "eviction_batch_kernel",
+                 "chase_floor_kernel")
+
+
+def print_sass_chains(lib_path) -> dict:
+    """What sits between one load of a chain and the next, in the SASS of
+    the chase kernels and the floor: each function's most common runs of
+    dependent instructions, by the loads they follow."""
+    chains = sass_chains(lib_path, CHASE_KERNELS)
+    for fn, counts in sorted(chains.items()):
+        print(f"[sass] {fn}: {sum(counts.values())} loads feed a later "
+              f"load's address; on the chain between one and the next: "
+              + "; ".join(f"{' '.join(ch) or '(nothing)'} after {k}"
+                          for ch, k in counts.most_common(3)))
+    check(all(chains.get(k) for k in CHASE_KERNELS[:2]),
+          f"sass: no dependent loads found in {sorted(chains)}")
+    return {fn: " ".join(counts.most_common(1)[0][0])
+            for fn, counts in chains.items()}
+
+
+def _per_load(ms: float, loads: int, smi: dict, floor_ns: float) -> dict:
+    """A launch's ns and SM cycles a load (ns times the SM clock read
+    beside it) and its share over the floor of its level."""
+    ns = ms * 1e6 / loads
+    return {"per_load_ns": ns,
+            "per_load_cycles": ns * smi["clocks_sm_mhz"] / 1e3,
+            "clocks_sm_mhz": smi["clocks_sm_mhz"],
+            "over_floor": ns / floor_ns}
+
+
+def phase_kernels(rng, floor: dict) -> dict:
     from repro_torch.kernels import ops
+    from repro_torch.kernels._build import load_library
     from repro_torch.kernels.pchase_probe import (eviction_batch_plain,
                                                   pchase_batch_plain,
                                                   pchase_reference)
@@ -397,73 +712,122 @@ def phase_kernels(rng) -> dict:
                                                   stream_write_plain)
 
     rows = {}
+    chains = print_sass_chains(load_library()[1].path)
+    floors, l1, l2 = floor["floors"], floor["l1_bytes"], floor["l2_bytes"]
 
     def record(name, **kw):
-        """Keep the largest chase shape for the summary line, with the
-        largest error of any shape."""
+        """Keep the largest chase shape for the summary line, every shape's
+        times under ``shapes``, and the largest error of any shape."""
         err = max(kw["max_abs_err"], rows.get(name, kw)["max_abs_err"])
+        shapes = rows.get(name, {}).get("shapes", {})
+        shapes[kw["shape"]] = {k: kw[k] for k in (
+            "ms", "device_ms", "bound_ms", "bound_level", "per_load_ns",
+            "per_load_cycles", "over_floor")}
         if name not in rows or kw["shape"] == "R=64,N=2^19":
             rows[name] = kw
         rows[name]["max_abs_err"] = err
+        rows[name]["shapes"] = shapes
 
-    for r, log_n in ((1, 10), (64, 10), (1, 19), (64, 19)):
+    for r, log_n in CHASE_SHAPES:
         n = 1 << log_n
         shape = f"R={r},N=2^{log_n}"
         perms = _cycles(r, n, rng)
+        cycle = np.full(r, n)                    # slots on each row's cycle
         wraps = r > 1 and log_n == 19
         if wraps:
-            perms[0] = _wrapping_row(n, rng)
-        steps = np.full(r, STEPS, dtype=np.int32)
+            perms[0], cycle[0] = _wrapping_row(n, rng), 1025
         evictors = _cycles(r, n, rng)
-        # one full pass over a small evictor, as discovery's rows make;
-        # capped at the probe's chain length on the 2 MiB rows
-        warm = np.full(r, min(n, STEPS), dtype=np.int32)
-        warm[0] = 0                                  # the bit-identity anchor
-        p_t, s_t, e_t, w_t = (torch.from_numpy(a).cuda()
-                              for a in (perms, steps, evictors, warm))
-
-        got = ops.pchase_batch(p_t, s_t)
-        torch.cuda.synchronize()
-        want = pchase_batch_plain(p_t, s_t)
-        check(torch.equal(got, want), f"pchase_batch {shape}: differs")
+        p_t, e_t = (torch.from_numpy(a).cuda() for a in (perms, evictors))
+        for length in UNROLL_STEPS + (STEPS,):     # STEPS last: timed below
+            steps = np.full(r, length, dtype=np.int32)
+            # one full pass over a small evictor, as discovery's rows make;
+            # capped at the probe's chain length on the 2 MiB rows
+            warm = np.minimum(steps, n)
+            warm[0] = 0                              # the bit-identity anchor
+            s_t, w_t = (torch.from_numpy(a).cuda() for a in (steps, warm))
+            got = ops.pchase_batch(p_t, s_t)
+            got_e = ops.eviction_batch(p_t, e_t, w_t, s_t)
+            torch.cuda.synchronize()
+            want = pchase_batch_plain(p_t, s_t)
+            want_e = eviction_batch_plain(p_t, e_t, w_t, s_t)
+            check(torch.equal(got, want),
+                  f"pchase_batch {shape} steps={length}: differs")
+            check(torch.equal(got_e, want_e),
+                  f"eviction_batch {shape} steps={length}: differs")
+            check(torch.equal(got_e[0], got[0]), f"eviction_batch {shape} "
+                  f"steps={length}: warm=0 row differs from pchase row")
+        print(f"[kernel] pchase_batch, eviction_batch {shape}: equal to the "
+              f"plain versions at steps {UNROLL_STEPS + (STEPS,)}")
         if wraps:
             # every value is positive, so a negative checksum has wrapped
             ref = pchase_reference(perms[0], STEPS)
             check(tuple(got[0].tolist()) == ref and ref[1] < 0,
                   f"pchase_batch {shape}: wrap row {got[0].tolist()} vs "
                   f"reference {ref}")
-        k_ms = event_ms(lambda: ops.pchase_batch(p_t, s_t))
-        p_ms = event_ms(lambda: pchase_batch_plain(p_t, s_t), reps=5)
-        nbytes = 4 * _chase_touched(steps, n) + 4 * r + 8 * r
-        b_ms, b_by = bound_ms(nbytes, 2 * int(steps.sum()))
-        print(f"[kernel] pchase_batch {shape} steps={STEPS}: exact; "
-              f"kernel_ms={k_ms:.4f} per_load_ns={k_ms * 1e6 / STEPS:.2f} "
-              f"bound_ms={b_ms:.6f} ({b_by}) plain_ms={p_ms:.3f} "
-              f"library_ms=null")
-        record("pchase_batch", shape=shape, ms=k_ms, plain_ms=p_ms,
-               bound_ms=b_ms, bound_by=b_by, library_ms=None,
-               max_abs_err=int((got - want).abs().max()))
-
-        got_e = ops.eviction_batch(p_t, e_t, w_t, s_t)
+        # rows that load n, or a negative value, end with cursor -1; the
+        # rows beside them are untouched
+        bad = perms.copy()
+        bad[0] = _leaving_row(perms[0], 100, n)
+        bad_ev = evictors.copy()
+        if r > 1:
+            bad[1] = _leaving_row(perms[1], 5, -7)
+            bad_ev[r - 1] = _leaving_row(evictors[r - 1], 3, n)
+        b_t, be_t = (torch.from_numpy(a).cuda() for a in (bad, bad_ev))
+        got_b = ops.pchase_batch(b_t, s_t)
+        got_be = ops.eviction_batch(p_t, be_t, w_t, s_t)
         torch.cuda.synchronize()
-        want_e = eviction_batch_plain(p_t, e_t, w_t, s_t)
-        check(torch.equal(got_e, want_e), f"eviction_batch {shape}: differs")
-        check(torch.equal(got_e[0], got[0]),
-              f"eviction_batch {shape}: warm=0 row differs from pchase row")
-        k_ms = event_ms(lambda: ops.eviction_batch(p_t, e_t, w_t, s_t))
-        p_ms = event_ms(lambda: eviction_batch_plain(p_t, e_t, w_t, s_t),
-                        reps=5)
-        loads = int(steps.sum() + warm.sum())
-        nbytes = (4 * (_chase_touched(steps, n) + _chase_touched(warm, n))
-                  + 12 * r + 8 * r)
-        b_ms, b_by = bound_ms(nbytes, 2 * loads)
-        print(f"[kernel] eviction_batch {shape} warm={min(n, STEPS)} "
-              f"probe={STEPS}: "
-              f"exact; kernel_ms={k_ms:.4f} bound_ms={b_ms:.6f} ({b_by}) "
-              f"plain_ms={p_ms:.3f} library_ms=null")
-        record("eviction_batch", shape=shape, ms=k_ms, plain_ms=p_ms,
-               bound_ms=b_ms, bound_by=b_by, library_ms=None,
-               max_abs_err=int((got_e - want_e).abs().max()))
+        left = [0, 1] if r > 1 else [0]
+        check(all(int(got_b[i, 0]) == -1 for i in left)
+              and torch.equal(got_b[len(left):], want[len(left):]),
+              f"pchase_batch {shape}: rows leaving [0, N) gave "
+              f"{got_b[:3].tolist()}")
+        check(r == 1 or (int(got_be[r - 1, 0]) == -1
+                         and torch.equal(got_be[:r - 1], want_e[:r - 1])),
+              f"eviction_batch {shape}: an evictor leaving [0, N) gave "
+              f"{got_be[-1].tolist()}")
+        print(f"[kernel] {shape}: rows that load N or -7 end with cursor -1 "
+              f"(pchase_batch rows {left}"
+              + (f", eviction_batch row {r - 1}" if r > 1 else "") + ")")
+
+        def chase():
+            return ops.pchase_batch(p_t, s_t)
+
+        def evict():
+            return ops.eviction_batch(p_t, e_t, w_t, s_t)
+
+        dev = device_ms({"pchase_batch": (chase, 1),
+                         "eviction_batch": (evict, 1)})
+        fps = 4 * cycle
+        for name, fn, plain in (
+                ("pchase_batch", chase, lambda: pchase_batch_plain(p_t, s_t)),
+                ("eviction_batch", evict,
+                 lambda: eviction_batch_plain(p_t, e_t, w_t, s_t))):
+            k_ms = event_ms(fn)
+            p_ms = event_ms(plain, reps=5)
+            if name == "pchase_batch":
+                b_ms, level = latency_bound_ms(steps, fps, floors, l1, l2)
+                loads = STEPS
+                err = int((got - want).abs().max())
+                what = f"steps={STEPS}"
+            else:
+                b_ms, level = eviction_bound_ms(
+                    warm, steps, np.full(r, 4 * n), fps, floors, l1, l2)
+                loads = STEPS + int(warm.max())
+                err = int((got_e - want_e).abs().max())
+                what = f"warm={int(warm.max())} probe={STEPS}"
+            floor_ns = b_ms * 1e6 / loads
+            per = _per_load(dev[name], loads, smi_beside(fn), floor_ns)
+            print(f"[kernel] {name} {shape} {what}: exact; kernel_ms="
+                  f"{k_ms:.4f} device_ms={dev[name]:.4f} per_load_ns="
+                  f"{per['per_load_ns']:.2f} ({per['per_load_cycles']:.1f} "
+                  f"cyc at {per['clocks_sm_mhz']:.0f} MHz) against the "
+                  f"floor's {floor_ns:.2f} at {level} "
+                  f"({per['over_floor']:.3f}x); bound_ms={b_ms:.6f} "
+                  f"(latency) plain_ms={p_ms:.3f} library_ms=null")
+            record(name, shape=shape, ms=k_ms, device_ms=dev[name],
+                   plain_ms=p_ms, bound_ms=b_ms, bound_by="latency",
+                   bound_level=level, library_ms=None, max_abs_err=err,
+                   sass_chain=chains.get(f"{name}_kernel"), **per)
 
     n = BW_BYTES // 4
     x = torch.from_numpy(rng.random(n, dtype=np.float32)).cuda()
@@ -538,7 +902,40 @@ def phase_kernels(rng) -> dict:
 # --------------------------------------------------------------------------
 # Phase 3: discovery on the card
 # --------------------------------------------------------------------------
-def phase_discover() -> dict:
+# discover_cuda() with this script's defaults on an NVIDIA H100 80GB HBM3 at
+# 700 W, with the chase kernel of commit 866db32 (a compare and an early
+# exit on every loaded value): its wall and per-family seconds.
+EARLIER_DISCOVERY = {"wall": 1.17, "size": 0.9337, "fetch_granularity": 0.0865,
+                     "bandwidth": 0.0016, "latency": 0.0636,
+                     "line_size": 0.0444, "amount": 0.0072, "sharing": 0.0}
+DISCOVERY_LAUNCHES = {"pchase_batch": 876, "eviction_batch": 13,
+                      "stream_read": 8, "stream_write": 8}
+
+
+def calibration_summary(entries: list, l1_bytes: int) -> dict:
+    """Per family, the request/calibration wall ratios of its timed loops
+    (least, median, largest), the rows whose request footprint and
+    calibration footprint lie on two sides of the L1 capacity, the host
+    wall of its timed launches (each launch and its synchronize) and the
+    host seconds its loops spent building chase buffers and copying them
+    to the card."""
+    out = {}
+    for family in sorted({e["family"] for e in entries}):
+        mine = [e for e in entries if e["family"] == family]
+        ratios = [e["ratio"] for e in mine]
+        straddle = sum((b <= l1_bytes) != (e["calibration_bytes"] <= l1_bytes)
+                       for e in mine for b in e["request_bytes"])
+        out[family] = {"loops": len(mine),
+                       "rows": sum(len(e["request_bytes"]) for e in mine),
+                       "ratio_min": min(ratios),
+                       "ratio_median": statistics.median(ratios),
+                       "ratio_max": max(ratios), "straddling_rows": straddle,
+                       "launch_s": sum(e["launch_s"] for e in mine),
+                       "buffer_s": sum(e["buffer_s"] for e in mine)}
+    return out
+
+
+def phase_discover(floor: dict) -> dict:
     from repro_torch.core import discover_cuda
     from repro_torch.core.probes import CudaRunner, make_cuda_model
     from repro_torch.kernels import ops
@@ -555,10 +952,25 @@ def phase_discover() -> dict:
           f"eviction grids {runner.eviction_grid_calls} carrying "
           f"{runner.eviction_grid_rows} rows; probe rows "
           f"{timings.probe_rows}; launches {launches}")
-    print("[discover] per-family seconds "
-          + json.dumps({k: round(v, 4) for k, v in
-                        timings.per_family.items()}))
+    print("[discover] per-family seconds (with the chase kernel of 866db32 "
+          "on an H100 at 700 W after the arrow) " + json.dumps(
+              {k: f"{v:.4f} <- {EARLIER_DISCOVERY.get(k, 'n/a')}"
+               for k, v in timings.per_family.items()})
+          + f"; wall {wall:.4f} <- {EARLIER_DISCOVERY['wall']}")
+    summary = calibration_summary(runner.calibrations, floor["l1_bytes"])
+    for family, row in summary.items():
+        print(f"[discover] calibration {family or '(none)'}: {row['loops']} "
+              f"timed loops, {row['rows']} rows; request/calibration wall "
+              f"ratio min {row['ratio_min']:.4f} median "
+              f"{row['ratio_median']:.4f} max {row['ratio_max']:.4f}; rows "
+              f"whose footprints straddle the L1's "
+              f"{floor['l1_bytes'] / KIB:.0f} KiB: {row['straddling_rows']}; "
+              f"of the family's {timings.per_family.get(family, 0.0):.4f}s, "
+              f"timed launches {row['launch_s']:.4f}s and chase buffers "
+              f"{row['buffer_s']:.4f}s")
     print(topo.to_markdown())
+    check(launches == DISCOVERY_LAUNCHES,
+          f"discovery launches {launches}, expected {DISCOVERY_LAUNCHES}")
 
     gt = make_cuda_model().ground_truth()
     for name in ("L1", "L2"):
@@ -584,8 +996,6 @@ def phase_discover() -> dict:
     amount = topo.find_memory("L1").get("amount")
     print(f"[discover] L1 amount {amount} (ground truth "
           f"{gt['L1']['amount']}; not held: the reference misses it too)")
-    for name, count in launches.items():
-        check(count > 0, f"{name}: no launch during discovery")
     print("[discover] bandwidth (GB/s, one launch's host wall at 2 MiB): "
           + "; ".join(f"{name} read {me.get('read_bw')} write "
                       f"{me.get('write_bw')}" for name, me in (
@@ -627,7 +1037,8 @@ WKV = dict(b=4, t=512, h=40, k=64, chunk=32)
 # * sm90 at head dim 256 the same: its 64-key tiles change where the
 #   softmax rescales, not how p is rounded, and the emulation follows the
 #   tile (SM90_TILES).  At head dims 16 and 32 the same again: they run the
-#   d 64 instantiation, whose columns past d load as zeros and add nothing.
+#   d 64 instantiation, whose columns past d load as zeros and add nothing;
+#   and at head dim 80, which runs the d 128 one the same way.
 # * cuda_core, f32: the online and the dense softmax sum in other orders.
 ATTN_TOL = {("sm90", torch.bfloat16): (2 ** -7, 2 ** -8),
             ("cuda_core", torch.float32): (2e-5, 2e-5)}
@@ -640,7 +1051,8 @@ OLD_BF16_ATOL = 2e-3
 # tensor-core kernel's half-empty query tile), head dim 64, bf16 at head
 # dim 256 (the tensor-core kernel's 64-key tiles) at the serving heads and
 # at paligemma-3b's (8 query heads on 1 kv head: 128 units for 132 SMs),
-# and bf16 at head dims 32 and 16 (the d 64 instantiation, zeros past d).
+# bf16 at head dims 32 and 16 (the d 64 instantiation, zeros past d) and at
+# zamba2-2.7b's head dim 80 (the d 128 instantiation, zeros past d).
 SERVE_HEADS = (ATTN["hq"], ATTN["hkv"])
 PALIGEMMA_HEADS = (8, 1)
 ATTN_CASES = ((torch.bfloat16, 512, True, 128, *SERVE_HEADS),
@@ -653,7 +1065,8 @@ ATTN_CASES = ((torch.bfloat16, 512, True, 128, *SERVE_HEADS),
               (torch.bfloat16, 512, True, 256, *SERVE_HEADS),
               (torch.bfloat16, 512, True, 256, *PALIGEMMA_HEADS),
               (torch.bfloat16, 512, True, 32, *SERVE_HEADS),
-              (torch.bfloat16, 512, True, 16, *SERVE_HEADS))
+              (torch.bfloat16, 512, True, 16, *SERVE_HEADS),
+              (torch.bfloat16, 512, True, 80, *SERVE_HEADS))
 # WKV6 in f32: 64-term dot products and 32-step chunk sums in other
 # orders; errors scale with the largest output.
 WKV_RTOL = 1e-4
@@ -680,14 +1093,14 @@ def _wkv_work(b, t, h, k, chunk) -> tuple[int, int]:
     return nbytes, b * h * (t // chunk) * per_chunk
 
 
-def phase_llm_kernels() -> dict:
+def phase_llm_kernels(floor: dict) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.core.probes.runners import random_cycle
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import (
-        SOURCES, flash_attention_plain, flash_attention_sm90_plain,
-        kernel_for)
+        SM90_LAUNCHES, SOURCES, flash_attention_plain,
+        flash_attention_sm90_plain, kernel_for)
     from repro_torch.kernels.pchase_probe import (pchase_plain,
                                                   pchase_reference)
     from repro_torch.kernels.rwkv6_scan import KERNELS as WKV_KERNELS
@@ -704,10 +1117,14 @@ def phase_llm_kernels() -> dict:
     for dtype, seq, causal, d, hq, hkv in ATTN_CASES:
         q = randn(b, seq, hq, d, dtype=dtype)
         k, v = (randn(b, seq, hkv, d, dtype=dtype) for _ in range(2))
+        by_d = dict(SM90_LAUNCHES)
         got = ops.mha(q, k, v, causal=causal)
         torch.cuda.synchronize()
         want = flash_attention_plain(q, k, v, causal)
         route = kernel_for(dtype, d)
+        check(route != "sm90" or SM90_LAUNCHES == {**by_d, d: by_d[d] + 1},
+              f"mha d={d}: the tensor-core kernel's count by head dim went "
+              f"from {by_d} to {dict(SM90_LAUNCHES)}")
         rtol, atol = ATTN_TOL[(route, dtype)]
         vmax = float(v.float().abs().max())
         if ATTN_ATOL_SCALES_WITH_V[route]:
@@ -777,7 +1194,8 @@ def phase_llm_kernels() -> dict:
                   f"{row['library_device_ms']:.4f}")
         name = {(128, torch.bfloat16): "mha", (128, torch.float32):
                 "mha_f32", (256, torch.bfloat16): "mha_d256",
-                (32, torch.bfloat16): "mha_d32"}.get((d, dtype))
+                (32, torch.bfloat16): "mha_d32",
+                (80, torch.bfloat16): "mha_d80"}.get((d, dtype))
         if seq == ATTN["s"] and causal and hq == ATTN["hq"] and name:
             rows[name] = row
         del q, k, v, qt, kt, vt, got, want, diff
@@ -847,8 +1265,9 @@ def phase_llm_kernels() -> dict:
 
     rng = np.random.default_rng(1)
     n = 1 << 19
-    for wraps, perm in ((False, random_cycle(n, rng)),
-                        (True, _wrapping_row(n, rng))):
+    floors, l1, l2 = floor["floors"], floor["l1_bytes"], floor["l2_bytes"]
+    for wraps, perm, cycle in ((False, random_cycle(n, rng), n),
+                               (True, _wrapping_row(n, rng), 1025)):
         p_t = torch.from_numpy(perm).cuda()
         got = ops.pchase(p_t, iters=STEPS)
         torch.cuda.synchronize()
@@ -860,17 +1279,29 @@ def phase_llm_kernels() -> dict:
         check(ref[1] < 0 or not wraps, f"pchase: the wrapping row {ref} "
               f"did not wrap")
         shape = f"N=2^19,iters={STEPS}" + (",wrapping" if wraps else "")
-        k_ms = event_ms(lambda: ops.pchase(p_t, iters=STEPS))
+
+        def chase():
+            return ops.pchase(p_t, iters=STEPS)
+
+        k_ms = event_ms(chase)
+        # the call's device time: the chase and the fill of its steps entry
+        dev = device_ms({"pchase": (chase, None)})["pchase"]
         p_ms = event_ms(lambda: pchase_plain(p_t, STEPS), reps=5)
-        touched = _chase_touched(np.array([STEPS]), n if not wraps else 1025)
-        b_ms, b_by = bound_ms(4 * touched + 8, 2 * STEPS)
-        print(f"[llm] pchase {shape}: exact; kernel_ms={k_ms:.4f} "
-              f"per_load_ns={k_ms * 1e6 / STEPS:.2f} bound_ms={b_ms:.6f} "
-              f"({b_by}) plain_ms={p_ms:.3f} library_ms=null")
+        b_ms, level = latency_bound_ms([STEPS], [4 * cycle], floors, l1, l2)
+        per = _per_load(dev, STEPS, smi_beside(chase), floors[level])
+        print(f"[llm] pchase {shape}: exact; kernel_ms={k_ms:.4f} device_ms="
+              f"{dev:.4f} per_load_ns={per['per_load_ns']:.2f} "
+              f"({per['per_load_cycles']:.1f} cyc at "
+              f"{per['clocks_sm_mhz']:.0f} MHz) against the floor's "
+              f"{floors[level]:.2f} at {level} ({per['over_floor']:.3f}x); "
+              f"bound_ms={b_ms:.6f} (latency) "
+              f"plain_ms={p_ms:.3f} library_ms=null")
         if not wraps:
-            rows["pchase"] = dict(shape=shape, ms=k_ms, plain_ms=p_ms,
-                                  bound_ms=b_ms, bound_by=b_by,
-                                  library_ms=None, max_abs_err=0)
+            rows["pchase"] = dict(shape=shape, ms=k_ms, device_ms=dev,
+                                  plain_ms=p_ms, bound_ms=b_ms,
+                                  bound_by="latency", bound_level=level,
+                                  library_ms=None,
+                                  max_abs_err=0, **per)
     torch.cuda.empty_cache()
     return rows
 
@@ -887,7 +1318,7 @@ SPANS = ("serve.prefill", "serve.decode_step")    # the engine's spans
 TOP_KERNELS = 6
 
 
-def _profile_wave(arch: str, eng, prompts, unprofiled: dict) -> dict:
+def _profile_wave(arch: str, eng, prompts, unprofiled: dict) -> dict | None:
     """One more run of a warm wave under ``torch.profiler``: the device's
     busy time (the sum of its kernels and copies; one stream, so they do not
     overlap) in the prefill and in the decode steps, each against the
@@ -896,7 +1327,8 @@ def _profile_wave(arch: str, eng, prompts, unprofiled: dict) -> dict:
     device is idle there: the marker kernel queued after each sampling
     splits the device's events into the prefill's and each step's, in the
     order the device ran them.  Returns, for each part, the device events
-    by name: (microseconds, count)."""
+    by name: (microseconds, count); None when the session's events do not
+    split into the wave's parts."""
     from torch.profiler import ProfilerActivity, profile
 
     marker = _marker_name()
@@ -927,11 +1359,12 @@ def _profile_wave(arch: str, eng, prompts, unprofiled: dict) -> dict:
           f"{arch}: spans {spans}")
     events = _device_events(prof)
     steps = marked_parts(events, marker, SERVE["max_new"])
-    check(steps is not None and all(steps),
-          f"{arch}: device events in the parts between markers "
-          f"{[len(part) for part in split_at_marks(events, marker)]}, "
-          f"expected {SERVE['max_new']} parts that are not empty after the "
-          f"lead-in and none after the last marker")
+    if steps is None or not all(steps):
+        print(f"[profile] {arch}: device events in the parts between "
+              f"markers {[len(part) for part in split_at_marks(events, marker)]}"
+              f", expected {SERVE['max_new']} parts that are not empty after "
+              f"the lead-in and none after the last marker")
+        return None
     parts = {}
     for part, mine in (("prefill", steps[0]),
                        ("decode", [ev for step in steps[1:] for ev in step])):
@@ -1010,7 +1443,7 @@ def phase_serve() -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False    # full f32 (smoke check)
     waves = -(-SERVE["requests"] // SERVE["slots"])
     launches = {"mha": 0, "wkv6": 0, "pchase": 0, "mha_d256": 0,
-                "mha_d32": 0}
+                "mha_d32": 0, "mha_d80": 0}
     for arch, kernel in (("qwen3-14b", "mha"), ("rwkv6-3b", "wkv6")):
         cfg = get_config(arch)
         ops.reset_launches()
@@ -1025,15 +1458,16 @@ def phase_serve() -> dict:
               f"expected {want}")
         # every mha call of the bf16, head-dim-128 model is a launch of the
         # tensor-core kernel at head dim 128, counted where it launches; no
-        # served config has head dim 16, 32, 64 or 256
+        # served config has head dim 16, 32, 64, 80 or 256
         want_routes = {"sm90": want["mha"], "cuda_core": 0}
-        want_by_d = {16: 0, 32: 0, 64: 0, 128: want["mha"], 256: 0}
+        want_by_d = {16: 0, 32: 0, 64: 0, 80: 0, 128: want["mha"], 256: 0}
         check(routes == want_routes and by_d == want_by_d,
               f"{arch}: attention kernel launches {routes}, by head dim "
               f"{by_d}; expected {want_routes}, {want_by_d}")
         counts["mha"] = by_d[128]
         counts["mha_d256"] = by_d[256]
         counts["mha_d32"] = by_d[32]
+        counts["mha_d80"] = by_d[80]
         for name, count in counts.items():
             launches[name] += count
         check(all(o.shape == (SERVE["max_new"],) for o in res["outputs"]),
@@ -1056,42 +1490,40 @@ def phase_serve() -> dict:
         again = eng.generate_batch(prompts, SERVE["max_new"])
         check(np.array_equal(again, np.stack(res["outputs"][:SERVE["slots"]])),
               f"{arch}: a second run of the first wave gave other tokens")
-        parts = _profile_wave(arch, eng, prompts, {
-            "tokens": again,
-            "prefill": eng.stats["prefill_s"] - before["prefill_s"],
-            "decode": eng.stats["decode_s"] - before["decode_s"]})
-        if kernel == "mha":
-            # the wave's prefill went through the tensor-core kernel, once a
-            # layer (the model runs bf16 at head dim 128)
-            mine = [(us, n) for kname, (us, n) in parts["prefill"].items()
-                    if "flash_fwd_sm90_kernel" in kname]
-            sm90 = sum(n for _, n in mine)
-            sm90_ms = sum(us for us, _ in mine) / 1e3
-            busy_ms = sum(us for us, _ in parts["prefill"].values()) / 1e3
-            check(sm90 == cfg.n_layers,
-                  f"{arch}: flash_fwd_sm90_kernel ran {sm90} times in the "
-                  f"warm wave's prefill, expected {cfg.n_layers}")
-            print(f"[profile] {arch}: flash_fwd_sm90_kernel {sm90}x in the "
-                  f"warm wave's prefill, device time {sm90_ms:.4f} ms "
-                  f"({sm90_ms / sm90:.4f} ms each), {sm90_ms / busy_ms:.4f} "
-                  f"of the prefill's device busy time {busy_ms:.3f} ms")
+        # the wave's prefill goes through the tensor-core kernel once a
+        # layer (the model runs bf16 at head dim 128), or through each WKV6
+        # kernel once a layer; a profiled wave whose device events fall
+        # short of that, or of its parts between markers, is taken again,
+        # up to PROFILER_SESSIONS waves, as device_ms takes sessions
+        names = (("flash_fwd_sm90_kernel",) if kernel == "mha"
+                 else WKV_KERNELS)
+        for attempt in range(1, PROFILER_SESSIONS + 1):
+            parts = _profile_wave(arch, eng, prompts, {
+                "tokens": again,
+                "prefill": eng.stats["prefill_s"] - before["prefill_s"],
+                "decode": eng.stats["decode_s"] - before["decode_s"]})
+            ran = {name: sum(n for kname, (_, n) in parts["prefill"].items()
+                             if name in kname)
+                   for name in names} if parts else {}
+            if ran and all(n == cfg.n_layers for n in ran.values()):
+                SESSIONS["whole"] += 1
+                break
+            SESSIONS["retaken"] += 1
+            print(f"[profile] {arch}: profiled wave {attempt} of "
+                  f"{PROFILER_SESSIONS} not whole (kernels in its prefill "
+                  f"{ran or 'not split'}, expected {cfg.n_layers} each)")
         else:
-            # the wave's prefill launched each WKV6 kernel once a layer, so
-            # the pair n_layers x len(WKV_KERNELS) times
-            busy_ms = sum(us for us, _ in parts["prefill"].values()) / 1e3
-            for wkv in WKV_KERNELS:
-                mine = [(us, n) for kname, (us, n) in parts["prefill"].items()
-                        if wkv in kname]
-                ran = sum(n for _, n in mine)
-                wkv_ms = sum(us for us, _ in mine) / 1e3
-                check(ran == cfg.n_layers,
-                      f"{arch}: {wkv} ran {ran} times in the warm wave's "
-                      f"prefill, expected {cfg.n_layers}")
-                print(f"[profile] {arch}: {wkv} {ran}x in the warm wave's "
-                      f"prefill, device time {wkv_ms:.4f} ms "
-                      f"({wkv_ms / ran:.4f} ms each), "
-                      f"{wkv_ms / busy_ms:.4f} of the prefill's device busy "
-                      f"time {busy_ms:.3f} ms")
+            raise SmokeFailure(f"{arch}: no whole profiled wave in "
+                               f"{PROFILER_SESSIONS}")
+        busy_ms = sum(us for us, _ in parts["prefill"].values()) / 1e3
+        for name in names:
+            name_ms = sum(us for kname, (us, _) in parts["prefill"].items()
+                          if name in kname) / 1e3
+            print(f"[profile] {arch}: {name} {ran[name]}x in the warm wave's "
+                  f"prefill, device time {name_ms:.4f} ms "
+                  f"({name_ms / ran[name]:.4f} ms each), "
+                  f"{name_ms / busy_ms:.4f} of the prefill's device busy "
+                  f"time {busy_ms:.3f} ms")
         with torch.no_grad():
             logits, _ = eng.model.prefill(
                 eng.params, {"tokens": torch.as_tensor(
@@ -1141,9 +1573,10 @@ def main() -> int:
 
     t0 = time.perf_counter()
     phase_build()
-    rows = phase_kernels(np.random.default_rng(0))
-    launches = phase_discover()
-    rows.update(phase_llm_kernels())
+    floor = floor_table(np.random.default_rng(3))
+    rows = phase_kernels(np.random.default_rng(0), floor)
+    launches = phase_discover(floor)
+    rows.update(phase_llm_kernels(floor))
     launches.update(phase_serve())      # pchase, mha_d256: serve-run counts
     print(f"[smoke] all phases passed in {time.perf_counter() - t0:.1f}s; "
           f"device_ms profiler sessions {SESSIONS}")
@@ -1158,6 +1591,7 @@ def main() -> int:
         "mha_f32": "src/repro/kernels/flash_attention.py:78",
         "mha_d256": "src/repro/kernels/flash_attention.py:78",
         "mha_d32": "src/repro/kernels/flash_attention.py:78",
+        "mha_d80": "src/repro/kernels/flash_attention.py:78",
         "wkv6": "src/repro/kernels/rwkv6_scan.py:74",
     }
     sources = {
@@ -1172,6 +1606,7 @@ def main() -> int:
     }
     paths = {"mha": "serve qwen3-14b", "wkv6": "serve rwkv6-3b",
              "pchase": None, "mha_d256": None, "mha_d32": None,
+             "mha_d80": None,
              "mha_f32": "qwen3-14b-smoke f32 prefill on the card"}
     kernels = []
     for name, row in rows.items():
@@ -1185,7 +1620,10 @@ def main() -> int:
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "shape": row["shape"], "path": paths.get(name, "discover_cuda"),
             "ok": True,
-            **{key: row[key] for key in ("device_ms", "library_device_ms")
+            **{key: row[key] for key in (
+                "device_ms", "library_device_ms", "bound_level",
+                "per_load_ns", "per_load_cycles",
+                "clocks_sm_mhz", "over_floor", "sass_chain", "shapes")
                if key in row},
         })
     print(smi)

@@ -23,6 +23,7 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Hashable
 
 from ..errors import TransientRunnerError
+from ..probes.runners import CURRENT_FAMILY
 
 __all__ = ["WorkItem", "ScheduleResult", "run_work_items", "check_items"]
 
@@ -164,8 +165,12 @@ def run_work_items(items: list[WorkItem], *, max_workers: int | None = None,
         return all(d in out.results for d in it.deps)
 
     def run_one(it: WorkItem):
+        token = CURRENT_FAMILY.set(it.family)
         t0 = time.perf_counter()
-        value = it.fn(out.results)
+        try:
+            value = it.fn(out.results)
+        finally:
+            CURRENT_FAMILY.reset(token)
         dt = time.perf_counter() - t0
         if timings is not None and it.family:
             with lock:

@@ -48,7 +48,16 @@ Implementation notes:
   window would be timed with the kernel;
 * scratchpad spaces advertise ``supports_cold=False``: end-to-end timing
   cannot classify individual loads of a cold pass there, and the engine
-  registry honors the capability flag by never scheduling the family.
+  registry honors the capability flag by never scheduling the family;
+* every timed loop leaves one entry in ``calibrations``: the family the
+  engine was running, the loop (``grid``, ``cold`` or ``evict``), each
+  request row's footprint on the card and the calibration rows' (slots x
+  4 B; a calibration row is a cycle over its whole power-of-two bucket),
+  the median request/calibration wall ratio, the summed host wall of its
+  timed launches and the host seconds spent since the entry before it on
+  building chase buffers (``random_cycle``) and moving them to the device.
+  A cache boundary that falls between the two footprints would bias the
+  ratio.
 """
 from __future__ import annotations
 
@@ -59,7 +68,7 @@ import torch
 
 from ...kernels import ops
 from ..simulate import SimDevice, SimLevel
-from .runners import SpaceInfo, random_cycle
+from .runners import CURRENT_FAMILY, SpaceInfo, random_cycle
 
 __all__ = ["CudaRunner", "make_cuda_model"]
 
@@ -142,6 +151,9 @@ class CudaRunner:
         # Eviction-grid utilization (§IV-F/G/H): dispatches vs rows carried.
         self.eviction_grid_calls = 0
         self.eviction_grid_rows = 0
+        self.calibrations: list[dict] = []              # one per timed loop
+        self.buffer_seconds = 0.0     # building chase buffers, copying them
+        self._buffer_mark = 0.0       # buffer_seconds at the last log entry
 
     # ------------------------------------------------------------- spaces
     def spaces(self) -> list[SpaceInfo]:
@@ -167,10 +179,19 @@ class CudaRunner:
     def _to_device(self, *arrays: np.ndarray) -> list[torch.Tensor]:
         """int32 device copies of ``arrays``, landed before returning, so
         no copy is in flight when a caller's clock starts."""
+        t0 = time.perf_counter()
         out = [torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32))
                .to(self.device) for a in arrays]
         self._sync()
+        self.buffer_seconds += time.perf_counter() - t0
         return out
+
+    def _cycle(self, n: int) -> np.ndarray:
+        """``random_cycle(n)`` from the runner's generator, timed."""
+        t0 = time.perf_counter()
+        cycle = random_cycle(n, self._rng)
+        self.buffer_seconds += time.perf_counter() - t0
+        return cycle
 
     # ------------------------------------------------------- chase plumbing
     def _slots(self, array_bytes: int, stride: int) -> int:
@@ -181,7 +202,7 @@ class CudaRunner:
         """Single-cycle chase buffer over ``n`` slots (memoized per size)."""
         perm = self._perm_cache.get(n)
         if perm is None:
-            perm = random_cycle(n, self._rng)
+            perm = self._cycle(n)
             self._perm_cache[n] = perm
         return perm
 
@@ -217,12 +238,25 @@ class CudaRunner:
         cal = self._cal_cache.pop(key, None)
         if cal is None:
             rows, bucket = shape
-            cal = np.stack([random_cycle(bucket, self._rng)
+            cal = np.stack([self._cycle(bucket)
                             for _ in range(rows)]).astype(np.int32)
             while len(self._cal_cache) >= self._cal_cache_cap:
                 self._cal_cache.pop(next(iter(self._cal_cache)))
         self._cal_cache[key] = cal                      # LRU: re-insert last
         return cal
+
+    def _log_calibration(self, loop: str, slot_counts, bucket: int,
+                         ratio: float, walls) -> None:
+        """Keep one timed loop's footprints, request/calibration ratio, the
+        summed wall seconds of its timed launches and the buffer seconds
+        spent since the last entry."""
+        self.calibrations.append({
+            "family": CURRENT_FAMILY.get(), "loop": loop,
+            "request_bytes": [self.ELEM_BYTES * int(n) for n in slot_counts],
+            "calibration_bytes": self.ELEM_BYTES * int(bucket),
+            "ratio": float(ratio), "launch_s": float(np.sum(walls)),
+            "buffer_s": self.buffer_seconds - self._buffer_mark})
+        self._buffer_mark = self.buffer_seconds
 
     def _maybe_warm(self, perms: torch.Tensor, steps: torch.Tensor) -> None:
         """Warm-up launch (paper §IV-A) once per (rows, bucket) grid shape.
@@ -253,7 +287,7 @@ class CudaRunner:
         perms = np.zeros((1, bucket), dtype=np.int32)
         perms[0, :n] = self._perm(n)
         steps = np.array([max(int(round(m * lat_cycles)), 1)], dtype=np.int32)
-        walls, cal = self._timed_loop(perms, steps, n_samples)
+        walls, cal = self._timed_loop(perms, steps, n_samples, [n])
         return lat_cycles * walls / cal
 
     def pchase_batch(self, space, array_bytes_list, stride, n_samples):
@@ -286,11 +320,12 @@ class CudaRunner:
         per_row = max(self.base_steps // max(len(reqs), 1), 512)
         ms = np.maximum(np.ceil(per_row / np.maximum(lats, 1.0)), 1.0)
         steps = np.asarray(np.round(ms * lats), dtype=np.int32)
-        walls, cal = self._timed_loop(perms, steps, n_samples)
+        walls, cal = self._timed_loop(perms, steps, n_samples, slot_counts)
         return lats[:, None] * (walls[None, :] / cal)
 
     def _timed_loop(self, perms: np.ndarray, steps: np.ndarray,
-                    n_samples: int) -> tuple[np.ndarray, float]:
+                    n_samples: int,
+                    slot_counts: list[int]) -> tuple[np.ndarray, float]:
         """Warm-up, ``n_samples`` timed request walls and a burst-resistant
         calibration.
 
@@ -299,6 +334,7 @@ class CudaRunner:
         noise is the distribution the statistics consume, but the
         calibration divisor scales the whole row, so no single burst may
         own it.  Every array is on the device before the first clock.
+        ``slot_counts`` are the request rows' slots, for the log.
         """
         perms_t, steps_t, cal_t = self._to_device(
             perms, steps, self._cal_perms(perms.shape))
@@ -310,7 +346,11 @@ class CudaRunner:
         walls += [self._run_batch(perms_t, steps_t)
                   for _ in range(n_samples - half)]
         cal_c = self._run_batch(cal_t, steps_t)
-        return np.asarray(walls), float(np.median([cal_a, cal_b, cal_c]))
+        cal = float(np.median([cal_a, cal_b, cal_c]))
+        self._log_calibration("grid", slot_counts, perms.shape[1],
+                              np.median(walls) / cal,
+                              walls + [cal_a, cal_b, cal_c])
+        return np.asarray(walls), cal
 
     # --------------------------------------------------------- cold chase
     def _cold_cycles(self, space, array_bytes, stride, n_loads) -> np.ndarray:
@@ -350,11 +390,15 @@ class CudaRunner:
         perms_t, steps_t, cal_t = self._to_device(
             perms, steps, self._cal_perms(perms.shape))
         self._maybe_warm(perms_t, steps_t)
-        ratios = []
+        ratios, walls = [], []
         for _ in range(self.cold_reps):
             w_req = self._run_batch(perms_t, steps_t)
-            ratios.append(w_req / self._run_batch(cal_t, steps_t))
+            w_cal = self._run_batch(cal_t, steps_t)
+            ratios.append(w_req / w_cal)
+            walls += [w_req, w_cal]
         ratio = float(np.median(ratios))
+        self._log_calibration("cold", slot_counts, perms.shape[1], ratio,
+                              walls)
         return np.stack([ratio * cyc for cyc in cycles_rows])
 
     def cold_chase_batch(self, space, array_bytes_list, stride_list,
@@ -418,7 +462,7 @@ class CudaRunner:
         the probe array itself)."""
         perm = self._evictor_cache.get(n)
         if perm is None:
-            perm = random_cycle(n, self._rng)
+            perm = self._cycle(n)
             self._evictor_cache[n] = perm
         return perm
 
@@ -483,6 +527,9 @@ class CudaRunner:
                   for _ in range(int(n_samples) - half)]
         cal_c = self._run_evict(*cal_args)
         cal = float(np.median([cal_a, cal_b, cal_c]))
+        self._log_calibration("evict", slot_counts, perms.shape[1],
+                              np.median(walls) / cal,
+                              walls + [cal_a, cal_b, cal_c])
         return lats[:, None] * (np.asarray(walls)[None, :] / cal)
 
     # ---------------------------------------------------------- bandwidth

@@ -22,13 +22,19 @@ first measurement) that discovery relies on anyway.
 """
 from __future__ import annotations
 
+from contextvars import ContextVar
 from dataclasses import dataclass
 from typing import Protocol, runtime_checkable
 
 import numpy as np
 
 __all__ = ["ProbeRunner", "SpaceInfo", "SimRunner", "sattolo_cycle",
-           "random_cycle"]
+           "random_cycle", "CURRENT_FAMILY"]
+
+# The probe family (its ``DiscoveryTimings`` bucket) whose work item the
+# engine's scheduler is running in this context; "" outside one.  Runners
+# that log what they time read it to file each entry under its family.
+CURRENT_FAMILY: ContextVar[str] = ContextVar("probe_family", default="")
 
 
 @dataclass(frozen=True)

@@ -3,7 +3,7 @@
 // Replaces the Pallas kernel of the reference package:
 //   flash_fwd_sm90_kernel <- repro/kernels/flash_attention.py flash_attention
 //                            (pallas_call at :94, body _kernel)
-// for bfloat16 inputs at head dims 16, 32, 64, 128 and 256; float32 runs
+// for bfloat16 inputs at head dims 16, 32, 64, 80, 128 and 256; float32 runs
 // csrc/flash_attention.cu (CUDA cores).  kernels/flash_attention.py chooses
 // between them by dtype alone.
 //
@@ -46,12 +46,14 @@
 //   the ring 2 x (32 + 32) KB and two 16 KB output tiles; at d = 256 Q
 //   64 KB, the ring 2 x (32 + 32) KB and two 16 KB output half-tiles,
 //   225 KB of the 227 KB a block may have.
-// * Head dims 16 and 32 run the d 64 instantiation on maps whose inner
-//   extent and row stride are the caller's d: a box of 64 columns reads
-//   zeros past column d, which add nothing to Q K^T or P V, and the store
-//   writes nothing past it.  The rows are 32 and 64 bytes apart, multiples
-//   of 16 as TMA requires.  Half or more of the tensor work is spent on
-//   the zeros; a tile of 32- or 64-byte swizzle would not be.
+// * Head dims 16 and 32 run the d 64 instantiation, and head dim 80
+//   (zamba2-2.7b's) the d 128 one, on maps whose inner extent and row
+//   stride are the caller's d: a box of 64 columns reads zeros past column
+//   d, which add nothing to Q K^T or P V, and the store writes nothing past
+//   it.  The rows are 32, 64 and 160 bytes apart, multiples of 16 as TMA
+//   requires.  At d 16 and 32 half or more of the tensor work is spent on
+//   the zeros, at d 80 three eighths; a tile of 32- or 64-byte swizzle
+//   would not be.
 // * S = Q K^T is wgmma m64nNk16 (N = kBN) with both operands in shared
 //   memory, K read K-major as it lies.  The online softmax runs on the
 //   accumulator fragment in registers; a row's max is reduced over the
@@ -766,7 +768,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int d,
 }  // namespace
 
 // bfloat16 only.  q (b, sq, hq, d); k, v (b, sk, hkv, d); o (b, sq, hq, d);
-// d 16, 32, 64, 128 or 256 (16 and 32 on the d 64 instantiation); sq and
+// d 16, 32, 64, 80, 128 or 256 (16 and 32 on the d 64 instantiation, 80
+// on the d 128 one); sq and
 // sk multiples of 64; every pointer 16-byte aligned.
 extern "C" int flash_attention_sm90_fwd(const void* q, const void* k,
                                         const void* v, void* o, int b, int hq,
@@ -785,6 +788,7 @@ extern "C" int flash_attention_sm90_fwd(const void* q, const void* k,
     case 16: return launch<64>(q, k, v, o, d, b, hq, hkv, sq, sk, causal, s);
     case 32: return launch<64>(q, k, v, o, d, b, hq, hkv, sq, sk, causal, s);
     case 64: return launch<64>(q, k, v, o, d, b, hq, hkv, sq, sk, causal, s);
+    case 80: return launch<128>(q, k, v, o, d, b, hq, hkv, sq, sk, causal, s);
     case 128: return launch<128>(q, k, v, o, d, b, hq, hkv, sq, sk, causal, s);
     case 256: return launch<256>(q, k, v, o, d, b, hq, hkv, sq, sk, causal, s);
     default: return static_cast<int>(cudaErrorInvalidValue);

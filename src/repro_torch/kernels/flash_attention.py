@@ -4,12 +4,14 @@ Two CUDA C++ kernels replace the reference's Pallas ``flash_attention``
 (``repro/kernels/flash_attention.py:78``); ``kernel_for`` picks one by dtype
 alone:
 
-* ``csrc/flash_attention_sm90.cu`` for bfloat16 at every head dim of
-  ``HEAD_DIMS``: the tensor cores (``wgmma`` on tiles that TMA loads), with
-  the probabilities rounded to bfloat16 for the P.V product, as the
-  reference's f32 dot at default precision does on the TPU's matrix unit;
-  head dims 16 and 32 run its d 64 instantiation, zeros past column d;
-* ``csrc/flash_attention.cu`` for float32: the CUDA cores, all in float32.
+* ``csrc/flash_attention_sm90.cu`` for bfloat16 at ``SM90_HEAD_DIMS``: the
+  tensor cores (``wgmma`` on tiles that TMA loads), with the probabilities
+  rounded to bfloat16 for the P.V product, as the reference's f32 dot at
+  default precision does on the TPU's matrix unit; head dims 16 and 32 run
+  its d 64 instantiation and head dim 80 its d 128 one, zeros past column
+  d;
+* ``csrc/flash_attention.cu`` for float32 at ``CUDA_CORE_HEAD_DIMS``: the
+  CUDA cores, all in float32.
 
 Each source's note says what bounds it and how it is laid out.  This module
 launches them and holds their plain PyTorch version.
@@ -18,7 +20,7 @@ The kernels and the plain version take the model layout: q (B, Sq, Hq, d),
 k and v (B, Sk, Hkv, d), with query head h reading kv head
 ``h // (Hq // Hkv)``, the causal mask ``row >= col`` counted from position
 0, the scores scaled by ``1/sqrt(d)`` and the output in q's dtype.  The
-kernels take Sq and Sk in multiples of ``BLOCK`` and d in ``HEAD_DIMS``,
+kernels take Sq and Sk in multiples of ``BLOCK`` and d in their head dims,
 float32 or bfloat16; the padding of a ragged causal prompt is the
 wrapper's (``ops.mha``).  Inputs are validated there; the functions here
 assume contiguous tensors of matching shapes on one device.
@@ -31,17 +33,19 @@ import torch
 
 from ._build import check_launch, load_library
 
-__all__ = ["BLOCK", "HEAD_DIMS", "SM90_HEAD_DIMS", "SM90_TILES", "NEG_INF",
+__all__ = ["BLOCK", "HEAD_DIMS", "SM90_HEAD_DIMS", "CUDA_CORE_HEAD_DIMS",
+           "SM90_TILES", "NEG_INF", "head_dims",
            "SOURCES", "LAUNCHES", "SM90_LAUNCHES", "kernel_for",
            "flash_attention_kernel",
            "flash_attention_plain", "flash_attention_sm90_plain"]
 
 BLOCK = 64                      # kBlock of csrc/flash_attention.cu
-HEAD_DIMS = (16, 32, 64, 128, 256)
-SM90_HEAD_DIMS = HEAD_DIMS      # csrc/flash_attention_sm90.cu's switch
+SM90_HEAD_DIMS = (16, 32, 64, 80, 128, 256)   # flash_attention_sm90.cu's switch
+CUDA_CORE_HEAD_DIMS = (16, 32, 64, 128, 256)  # flash_attention.cu's switch
+HEAD_DIMS = SM90_HEAD_DIMS      # every head dim a kernel takes, in some dtype
 # keys a tile of the tensor-core kernel, by head dim: Layout<D>::kBN of the
-# instantiation the head dim runs on (d 16 and 32 run D = 64)
-SM90_TILES = {16: 128, 32: 128, 64: 128, 128: 128, 256: 64}
+# instantiation the head dim runs on (d 16 and 32 run D = 64, d 80 D = 128)
+SM90_TILES = {16: 128, 32: 128, 64: 128, 80: 128, 128: 128, 256: 64}
 NEG_INF = -1e30
 # kernel_for's answer -> the source of that kernel, under kernels/
 SOURCES = {"sm90": "csrc/flash_attention_sm90.cu",
@@ -59,6 +63,12 @@ def kernel_for(dtype: torch.dtype, d: int) -> str:
     (float32).  The choice depends on nothing else."""
     return ("sm90" if dtype == torch.bfloat16 and d in SM90_HEAD_DIMS
             else "cuda_core")
+
+
+def head_dims(dtype: torch.dtype) -> tuple:
+    """The head dims the kernel that takes ``dtype`` runs: bfloat16's
+    tensor-core kernel or float32's CUDA-core one."""
+    return SM90_HEAD_DIMS if dtype == torch.bfloat16 else CUDA_CORE_HEAD_DIMS
 
 
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

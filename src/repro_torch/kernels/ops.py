@@ -16,8 +16,9 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from .flash_attention import (BLOCK, HEAD_DIMS, LAUNCHES, SM90_LAUNCHES,
-                              flash_attention_kernel, flash_attention_plain)
+from .flash_attention import (BLOCK, LAUNCHES, SM90_LAUNCHES,
+                              flash_attention_kernel, flash_attention_plain,
+                              head_dims)
 from .pchase_probe import (eviction_batch_plain, eviction_kernel_batch,
                            pchase_batch_plain, pchase_kernel,
                            pchase_kernel_batch, pchase_plain)
@@ -159,8 +160,9 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if hkv == 0 or hq % hkv:
         raise ValueError(f"{hq} query heads are not a multiple of {hkv} kv "
                          f"heads")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    if d not in head_dims(q.dtype):
+        raise ValueError(f"head dim {d} not in {head_dims(q.dtype)} for "
+                         f"{q.dtype}")
     ragged = sq % BLOCK or sk % BLOCK
     if ragged and not (causal and sq <= sk):
         raise ValueError(f"lengths {sq}, {sk} are not multiples of {BLOCK}; "

@@ -21,6 +21,12 @@ chain (warm phase over buffer B) and then a *probe* chain (buffer A), both
 phase lengths per-row kernel data.  A row with ``warm == 0`` is
 bit-identical to the same ``pchase_kernel_batch`` row.
 
+``chase_floor`` is a yardstick, not a port: one thread times dependent
+loads with nothing else on the chain, which gives the chase rows the
+latency bound of the level their footprint lives in.  It runs on the card
+only (there is no plain version of a latency), is in no wrapper tuple of
+``ops`` and is launched by ``chip_smoke.py`` alone.
+
 Inputs are validated by the wrappers in ``ops``; the functions here assume
 contiguous int32 tensors of matching shapes on one device.
 """
@@ -32,7 +38,7 @@ import torch
 from ._build import check_launch, load_library
 
 __all__ = ["pchase_kernel", "pchase_kernel_batch", "eviction_kernel_batch",
-           "pchase_plain", "pchase_batch_plain", "eviction_batch_plain",
+           "chase_floor", "FLOOR_VARIANTS", "FLOOR_UNROLL", "pchase_plain", "pchase_batch_plain", "eviction_batch_plain",
            "pchase_reference", "eviction_reference"]
 
 
@@ -71,6 +77,48 @@ def eviction_kernel_batch(perms: torch.Tensor, evictors: torch.Tensor,
         perms.data_ptr(), evictors.data_ptr(), warm.data_ptr(),
         probe.data_ptr(), out.data_ptr(), rows, n, m, stream))
     return out
+
+
+# What sits on the floor's chain besides the load (csrc/pchase.cu
+# chase_floor_kernel): the address alone, the kernels' clamp, or a signed
+# index with a compare, an early exit and the checksum.
+FLOOR_VARIANTS = ("load", "clamp", "check")
+FLOOR_UNROLL = 256              # kFloorUnroll: loads of one timed run
+
+
+def chase_floor(chain: torch.Tensor, *, warm: int, rounds: int,
+                variant: str = "load") -> dict:
+    """Dependent-load latency on the card: one thread walks ``chain`` (N,)
+    int32, each slot holding the next slot, ``warm`` loads from slot 0 and
+    then ``rounds`` x ``FLOOR_UNROLL`` timed loads.  Returns SM cycles and
+    ns per timed load (``clock64`` and ``%globaltimer``), their ratio (the
+    SM clock in GHz during the run) and the loads timed.  Raises without a
+    card and for a tensor that is not on one: a latency has no plain
+    version."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("chase_floor: no CUDA device; the floor is a "
+                           "measurement of the card and has no plain version")
+    if not isinstance(chain, torch.Tensor) or chain.device.type != "cuda":
+        raise ValueError(f"chase_floor: the chain must be a CUDA tensor, got "
+                         f"{getattr(chain, 'device', type(chain))}")
+    if chain.dtype != torch.int32 or chain.dim() != 1 \
+            or not chain.is_contiguous() or not 0 < chain.shape[0] < 2**31:
+        raise ValueError(f"chase_floor: expected a contiguous (N,) int32 "
+                         f"chain, got {chain.dtype} {tuple(chain.shape)}")
+    if variant not in FLOOR_VARIANTS:
+        raise ValueError(f"chase_floor: variant {variant!r} not in "
+                         f"{FLOOR_VARIANTS}")
+    lib, _ = load_library()
+    out = torch.empty(4, dtype=torch.int64, device=chain.device)
+    stream = torch.cuda.current_stream(chain.device).cuda_stream
+    check_launch(lib, "chase_floor", lib.chase_floor(
+        chain.data_ptr(), chain.shape[0], int(warm), int(rounds),
+        FLOOR_VARIANTS.index(variant), out.data_ptr(), stream))
+    cycles, ns, loads, _ = out.tolist()
+    if loads <= 0:
+        raise ValueError("chase_floor: the chain left [0, N)")
+    return {"cycles": cycles / loads, "ns": ns / loads, "loads": loads,
+            "ghz": cycles / ns}
 
 
 # --------------------------------------------------------------------------
