@@ -11,11 +11,13 @@ to a plain version):
              chase, stream, both flash-attention and the WKV6 sources, one
              compiler each, all at once) into ``build/kernels/``; prints
              each source's compile time and ptxas's registers and spills,
-             and checks that every instantiation of the tensor-core
-             attention kernel spills nothing and that the SASS of each
-             (d 256's on its own) holds wgmma (HGMMA) and TMA loads, and
-             that every instantiation of the two WKV6 kernels spills
-             nothing (their registers printed);
+             and checks that every instantiation of both attention
+             kernels spills nothing, that the SASS of each tensor-core one
+             holds wgmma (HGMMA) and TMA loads and that of each CUDA-core
+             one 128-bit shared loads (LDS.128) and asynchronous copies
+             (LDGSTS), with the FFMAs per shared load of its innermost
+             loops printed, and that every instantiation of the two WKV6
+             kernels spills nothing (their registers printed);
 2. kernels — first the floor: ``chase_floor`` (one thread, dependent
              loads with nothing else on the chain) at footprints from 4 KiB
              to 256 MiB, with ``nvidia-smi``'s SM clock and power beside
@@ -43,22 +45,28 @@ to a plain version):
              request/calibration wall ratios and the rows whose two
              footprints straddle the L1 capacity;
 4. llm kernels — ``ops.mha`` (the tensor-core kernel for bf16 at head
-             dims 16, 32, 64, 80, 128 and 256, the CUDA-core one for f32),
-             ``ops.wkv6`` (its two kernels, at T 512, T 500 and at the
-             model's strong decays) and ``ops.pchase`` at the shapes the
-             serve phase gives them (and attention at head dim 256 also at
-             paligemma-3b's head layout), against their plain versions
-             (tolerances at each check; the tensor-core kernel also against
-             the plain emulation of its own numerics), with CUDA-event
-             times, device times, bounds and, for attention,
-             ``scaled_dot_product_attention`` as the library yardstick;
+             dims 16, 32, 64, 80, 96, 100, 128 and 256, the CUDA-core one
+             for f32 at 3, 16, 64, 78, 80, 128 and 256, causal and full,
+             and at the f32 smoke run's own prefill), ``ops.wkv6``
+             (its two kernels, at T 512, T 500, the model's strong decays,
+             K 64 with V 32 and the reference's chunk 64) and
+             ``ops.pchase`` at the shapes the serve phase gives them (and
+             attention at head dim 256 also at paligemma-3b's head layout),
+             against their plain versions (tolerances at each check; the
+             tensor-core kernel also against the plain emulation of its own
+             numerics), with CUDA-event times, device times (both attention
+             kernels and ``scaled_dot_product_attention`` beside them, the
+             f32 kernel's SM clock while it runs), bounds and, for
+             attention, ``scaled_dot_product_attention`` as the library
+             yardstick;
 5. serve   — ``repro_torch.launch.serve.main`` at full width and depth in
              bfloat16 for qwen3-14b, then rwkv6-3b (8 requests of 512
              tokens, 16 new tokens each, 4 slots): the launch counts read
              around each call alone (one ``mha`` or ``wkv6`` per layer and
              wave; every ``mha`` a launch of the tensor-core kernel at head
-             dim 128 and none at 16, 32, 64, 80 or 256, counted by head dim
-             where that kernel launches), 16 tokens a request, finite
+             dim 128 and none at another head dim or of the CUDA-core
+             kernel, counted by head dim where each kernel launches), 16
+             tokens a request, finite
              logits, equal greedy tokens
              from a second, warm run of one wave; that warm wave's prefill
              and decode split, and a third run of it under
@@ -71,13 +79,14 @@ to a plain version):
              of its parts or of those counts is run again, up to three, and
              each prints their device time there); then the smoke configs
              in f32 on the card
-             (where the CUDA-core attention kernel runs) against the same
-             weights on the CPU.
+             (where the CUDA-core attention kernel runs, at head dim 16 on
+             its d 32 instantiation) against the same weights on the CPU.
 
 The last two lines of standard output are the kernels summary and the
 device line, each one JSON object.  Exits non-zero without them when there
 is no CUDA device or the port's sources are missing.
 """
+import functools
 import gc
 import json
 import os
@@ -533,18 +542,23 @@ def load_chains(sass: str) -> list[tuple]:
     return chains
 
 
+@functools.lru_cache(maxsize=None)
+def _sass(lib_path) -> str:
+    """``cuobjdump -sass`` of the library, once a run."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    return subprocess.run(
+        [os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass", str(lib_path)],
+        capture_output=True, text=True, check=True).stdout
+
+
 def sass_chains(lib_path, kernels) -> dict:
     """``load_chains`` of each function of the library whose name holds one
     of ``kernels``, counted: {function: Counter(chain -> loads)}."""
     from collections import Counter
 
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    sass = subprocess.run(
-        [os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass", str(lib_path)],
-        capture_output=True, text=True, check=True).stdout
     found = {}
-    for part in sass.split("Function : ")[1:]:
+    for part in _sass(lib_path).split("Function : ")[1:]:
         name = part.splitlines()[0].strip()
         label = next((k for k in kernels if k in name), None)
         if label is not None:
@@ -558,20 +572,49 @@ def sass_chains(lib_path, kernels) -> dict:
 # Phase 1: build
 # --------------------------------------------------------------------------
 def _sass_counts(lib_path, kernel: str) -> dict:
-    """Tensor-core (HGMMA) and TMA-load (UTMALDG) instructions in the SASS
-    of the library's functions whose name contains ``kernel``."""
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    sass = subprocess.run(
-        [os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass", str(lib_path)],
-        capture_output=True, text=True, check=True).stdout
-    counts = {"functions": 0, "HGMMA": 0, "UTMALDG": 0}
-    for part in sass.split("Function : ")[1:]:
+    """Tensor-core (HGMMA), TMA-load (UTMALDG), asynchronous-copy (LDGSTS)
+    and shared-load (LDS, of which 128-bit LDS.128) instructions in the
+    SASS of the library's functions whose name contains ``kernel``."""
+    counts = {"functions": 0, "HGMMA": 0, "UTMALDG": 0, "LDGSTS": 0,
+              "LDS": 0, "LDS.128": 0}
+    for part in _sass(lib_path).split("Function : ")[1:]:
         if kernel in part.splitlines()[0]:
             counts["functions"] += 1
-            counts["HGMMA"] += part.count("HGMMA")
-            counts["UTMALDG"] += part.count("UTMALDG")
+            for _, _, op, _ in _instructions(part):
+                for key in ("HGMMA", "UTMALDG", "LDGSTS"):
+                    counts[key] += op.startswith(key)
+                if op.startswith("LDS"):
+                    counts["LDS"] += 1
+                    counts["LDS.128"] += op.endswith(".128")
     return counts
+
+
+def inner_loops(lib_path, kernel: str) -> list[dict]:
+    """The innermost loops (a backward branch with no other inside it) of
+    the one function whose name contains ``kernel`` that hold FFMAs: their
+    instructions, FFMAs and shared loads, and FFMAs per shared load."""
+    parts = [part for part in _sass(lib_path).split("Function : ")[1:]
+             if kernel in part.splitlines()[0]]
+    check(len(parts) == 1, f"{kernel}: {len(parts)} functions in the SASS")
+    ins = _instructions(parts[0])
+    index = {addr: i for i, (addr, *_) in enumerate(ins)}
+    loops = [(index[int(m[1], 16)], i)
+             for i, (_, _, op, operands) in enumerate(ins)
+             if op.startswith("BRA") and operands
+             and (m := re.match(r"(0x[0-9a-f]+)", operands[0]))
+             and int(m[1], 16) < ins[i][0] and int(m[1], 16) in index]
+    found = []
+    for top, end in loops:
+        if any(top <= t2 and e2 < end for t2, e2 in loops
+               if (t2, e2) != (top, end)):
+            continue                                # holds another loop
+        ops = [op for _, _, op, _ in ins[top:end + 1]]
+        ffma = sum(op.startswith("FFMA") for op in ops)
+        lds = sum(op.startswith("LDS") for op in ops)
+        if ffma:
+            found.append({"instructions": len(ops), "FFMA": ffma, "LDS": lds,
+                          "FFMA_per_LDS": round(ffma / max(lds, 1), 2)})
+    return found
 
 
 def _ptxas_functions(log: str) -> dict:
@@ -594,13 +637,9 @@ def _ptxas_functions(log: str) -> dict:
     return funcs
 
 
-# the tensor-core attention kernel's instantiation at each head dim, as its
-# mangled name spells it
-SM90_KERNELS = {d: f"flash_fwd_sm90_kernelILi{d}E" for d in (64, 128, 256)}
-
-
 def phase_build() -> None:
     from repro_torch.kernels._build import load_library
+    from repro_torch.kernels.flash_attention import INSTANTIATIONS
     from repro_torch.kernels.rwkv6_scan import HEAD_SIZES, KERNELS
 
     t0 = time.perf_counter()
@@ -614,7 +653,30 @@ def phase_build() -> None:
     funcs = _ptxas_functions(info.log)
     for name, props in funcs.items():
         print(f"[build] {name}: {props}")
-    for d, kernel in SM90_KERNELS.items():
+    # each attention kernel's instantiations, as their mangled names spell
+    # them: no spills; the tensor-core one holds wgmma and TMA loads, the
+    # CUDA-core one vector shared loads and asynchronous copies
+    for d in INSTANTIATIONS["cuda_core"]:
+        kernel = f"flash_fwd_kernelILi{d}E"
+        mine = [props for name, props in funcs.items() if kernel in name]
+        check(len(mine) == 1 and mine[0].get("spill_bytes") == 0,
+              f"flash_fwd_kernel<{d}>: ptxas reports {mine}, not one "
+              f"function without spills")
+        sass = _sass_counts(info.path, kernel)
+        loops = inner_loops(info.path, kernel)
+        print(f"[build] flash_fwd_kernel<{d}>: {mine[0]['registers']} "
+              f"registers, {mine[0]['spill_bytes']} spill bytes; SASS {sass};"
+              f" innermost loops with FFMA {loops}")
+        check(sass["functions"] == 1 and sass["LDS.128"] > 0
+              and sass["LDGSTS"] > 0,
+              f"flash_fwd_kernel<{d}> lacks LDS.128 or LDGSTS: {sass}")
+        # the design feeds at least 4 FFMA from each shared load in both
+        # products (an SM issues 4 warp-FFMAs a clock)
+        check(loops and all(loop["FFMA_per_LDS"] >= 4 for loop in loops),
+              f"flash_fwd_kernel<{d}>: innermost loops {loops} feed fewer "
+              f"than 4 FFMA a shared load")
+    for d in INSTANTIATIONS["sm90"]:
+        kernel = f"flash_fwd_sm90_kernelILi{d}E"
         mine = [props for name, props in funcs.items() if kernel in name]
         check(len(mine) == 1 and mine[0].get("spill_bytes") == 0,
               f"flash_fwd_sm90_kernel<{d}>: ptxas reports {mine}, not one "
@@ -1036,10 +1098,14 @@ WKV = dict(b=4, t=512, h=40, k=64, chunk=32)
 #   0.05 at N(0, 1) inputs, so an error of a tenth of one of them fails.
 # * sm90 at head dim 256 the same: its 64-key tiles change where the
 #   softmax rescales, not how p is rounded, and the emulation follows the
-#   tile (SM90_TILES).  At head dims 16 and 32 the same again: they run the
+#   tile (sm90_tile).  At head dims 16 and 32 the same again: they run the
 #   d 64 instantiation, whose columns past d load as zeros and add nothing;
 #   and at head dim 80, which runs the d 128 one the same way.
-# * cuda_core, f32: the online and the dense softmax sum in other orders.
+# * cuda_core, f32: the online and the dense softmax sum in other orders;
+#   at every head dim, whose columns past d (to the instantiation) load as
+#   zeros and add nothing.
+# * sm90 at head dims 96 and 100 the same as at 80: the d 128 instantiation,
+#   zeros past d (d 100 padded by the wrapper to a row of 104).
 ATTN_TOL = {("sm90", torch.bfloat16): (2 ** -7, 2 ** -8),
             ("cuda_core", torch.float32): (2e-5, 2e-5)}
 ATTN_ATOL_SCALES_WITH_V = {"sm90": True, "cuda_core": False}
@@ -1052,9 +1118,18 @@ OLD_BF16_ATOL = 2e-3
 # dim 256 (the tensor-core kernel's 64-key tiles) at the serving heads and
 # at paligemma-3b's (8 query heads on 1 kv head: 128 units for 132 SMs),
 # bf16 at head dims 32 and 16 (the d 64 instantiation, zeros past d) and at
-# zamba2-2.7b's head dim 80 (the d 128 instantiation, zeros past d).
+# zamba2-2.7b's head dim 80 (the d 128 instantiation, zeros past d), and at
+# 96 and 100 (d 128 too; 100 padded to a row of 104 for TMA); f32 full
+# attention and f32 at head dims 64, 80 (zamba2-2.7b's, the d 128
+# instantiation) and 256 (64-row query tiles, 32-key tiles); f32 at head
+# dim 16 (the d 32 instantiation, the only one that reads V as float2)
+# at the serving heads and at the f32 smoke run's own prefill (6 query
+# heads on 2 kv heads, a ragged 100-token prompt), and f32 at head dims 3
+# and 78, no multiple of 4, which the wrapper pads to rows of 4 and 80
+# (the d 32 and d 128 instantiations).
 SERVE_HEADS = (ATTN["hq"], ATTN["hkv"])
 PALIGEMMA_HEADS = (8, 1)
+SMOKE_HEADS = (6, 2)            # phase 5's qwen3-14b-smoke overrides
 ATTN_CASES = ((torch.bfloat16, 512, True, 128, *SERVE_HEADS),
               (torch.float32, 512, True, 128, *SERVE_HEADS),
               (torch.bfloat16, 500, True, 128, *SERVE_HEADS),
@@ -1066,7 +1141,25 @@ ATTN_CASES = ((torch.bfloat16, 512, True, 128, *SERVE_HEADS),
               (torch.bfloat16, 512, True, 256, *PALIGEMMA_HEADS),
               (torch.bfloat16, 512, True, 32, *SERVE_HEADS),
               (torch.bfloat16, 512, True, 16, *SERVE_HEADS),
-              (torch.bfloat16, 512, True, 80, *SERVE_HEADS))
+              (torch.bfloat16, 512, True, 80, *SERVE_HEADS),
+              (torch.bfloat16, 512, True, 96, *SERVE_HEADS),
+              (torch.bfloat16, 512, True, 100, *SERVE_HEADS),
+              (torch.float32, 512, False, 128, *SERVE_HEADS),
+              (torch.float32, 512, True, 64, *SERVE_HEADS),
+              (torch.float32, 512, True, 80, *SERVE_HEADS),
+              (torch.float32, 512, True, 256, *SERVE_HEADS),
+              (torch.float32, 512, True, 16, *SERVE_HEADS),
+              (torch.float32, 100, True, 16, *SMOKE_HEADS),
+              (torch.float32, 512, True, 3, *SERVE_HEADS),
+              (torch.float32, 512, True, 78, *SERVE_HEADS))
+# The rows of the kernels line that these cases give, by (head dim, dtype)
+# at the serving heads, length and causal mask.
+ATTN_ROWS = {(128, torch.bfloat16): "mha", (128, torch.float32): "mha_f32",
+             (256, torch.bfloat16): "mha_d256", (32, torch.bfloat16): "mha_d32",
+             (80, torch.bfloat16): "mha_d80", (100, torch.bfloat16): "mha_d100",
+             (80, torch.float32): "mha_f32_d80",
+             (256, torch.float32): "mha_f32_d256",
+             (16, torch.float32): "mha_f32_d16"}
 # WKV6 in f32: 64-term dot products and 32-step chunk sums in other
 # orders; errors scale with the largest output.
 WKV_RTOL = 1e-4
@@ -1099,12 +1192,13 @@ def phase_llm_kernels(floor: dict) -> dict:
     from repro_torch.core.probes.runners import random_cycle
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import (
-        SM90_LAUNCHES, SOURCES, flash_attention_plain,
-        flash_attention_sm90_plain, kernel_for)
+        BY_HEAD_DIM, SOURCES, flash_attention_plain,
+        flash_attention_sm90_plain, instantiation, kernel_for, row_width)
     from repro_torch.kernels.pchase_probe import (pchase_plain,
                                                   pchase_reference)
+    from repro_torch.kernels.rwkv6_scan import CHUNK as WKV_CHUNK
     from repro_torch.kernels.rwkv6_scan import KERNELS as WKV_KERNELS
-    from repro_torch.kernels.rwkv6_scan import wkv6_plain
+    from repro_torch.kernels.rwkv6_scan import head_size, wkv6_plain
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -1117,14 +1211,15 @@ def phase_llm_kernels(floor: dict) -> dict:
     for dtype, seq, causal, d, hq, hkv in ATTN_CASES:
         q = randn(b, seq, hq, d, dtype=dtype)
         k, v = (randn(b, seq, hkv, d, dtype=dtype) for _ in range(2))
-        by_d = dict(SM90_LAUNCHES)
+        route = kernel_for(dtype)
+        counts = BY_HEAD_DIM[route]
+        by_d = dict(counts)
         got = ops.mha(q, k, v, causal=causal)
         torch.cuda.synchronize()
         want = flash_attention_plain(q, k, v, causal)
-        route = kernel_for(dtype, d)
-        check(route != "sm90" or SM90_LAUNCHES == {**by_d, d: by_d[d] + 1},
-              f"mha d={d}: the tensor-core kernel's count by head dim went "
-              f"from {by_d} to {dict(SM90_LAUNCHES)}")
+        check(counts == {**by_d, d: by_d.get(d, 0) + 1},
+              f"mha d={d}: the {route} kernel's count by head dim rose "
+              f"at {[x for x in counts if counts[x] != by_d.get(x)]}")
         rtol, atol = ATTN_TOL[(route, dtype)]
         vmax = float(v.float().abs().max())
         if ATTN_ATOL_SCALES_WITH_V[route]:
@@ -1170,7 +1265,8 @@ def phase_llm_kernels(floor: dict) -> dict:
                               if dtype == torch.bfloat16 else FP32_OPS_PER_S)
         old = (f"; share beyond the old atol {OLD_BF16_ATOL:g}: "
                f"{old_refused:.2e}" if route == "sm90" else "")
-        print(f"[llm] mha {shape} ({route} kernel): rtol={rtol:g} "
+        print(f"[llm] mha {shape} ({route} kernel at its d "
+              f"{instantiation(dtype, d)} instantiation): rtol={rtol:g} "
               f"atol={atol:g} ok (max_abs_err={err:g}{old}){emulated}; "
               f"kernel_ms={k_ms:.4f} ({n_ops / k_ms / 1e9:.1f} TFLOP/s, "
               f"{b_ms / k_ms:.3f} of the bound) bound_ms={b_ms:.6f} "
@@ -1179,23 +1275,31 @@ def phase_llm_kernels(floor: dict) -> dict:
         row = dict(shape=shape, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
                    bound_by=b_by, library_ms=l_ms, max_abs_err=err,
                    source=SOURCES[route])
-        if route == "sm90" and seq == ATTN["s"] and causal:
-            # the tensor-core kernel's device time beside SDPA's
+        if seq == ATTN["s"] and causal:
+            # the kernel's device time beside SDPA's (a row that is no
+            # multiple of 16 bytes adds the wrapper's padding copies)
             dev = device_ms({
-                "kernel": (lambda: ops.mha(q, k, v, causal=causal), 1),
+                "kernel": (lambda: ops.mha(q, k, v, causal=causal),
+                           1 if row_width(dtype, d) == d else None),
                 "library": (lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=causal, enable_gqa=True), None)})
             row["device_ms"] = dev["kernel"]
             row["library_device_ms"] = dev["library"]
+            clock = ""
+            if route == "cuda_core" and d == ATTN["d"]:
+                # the FFMA-bound kernel's SM clock against the 1980 MHz
+                # its 67 TFLOP/s bound assumes
+                smi = smi_beside(lambda: ops.mha(q, k, v, causal=causal))
+                row["clocks_sm_mhz"] = smi["clocks_sm_mhz"]
+                clock = (f"; SM clock {smi['clocks_sm_mhz']:.0f} MHz, "
+                         f"{smi['power_draw_w']:.0f} W of "
+                         f"{smi['power_limit_w']:.0f} W while it runs")
             print(f"[llm] mha {shape}: device_ms={row['device_ms']:.4f} "
                   f"({n_ops / row['device_ms'] / 1e9:.1f} TFLOP/s, "
                   f"{b_ms / row['device_ms']:.3f} of the bound); "
                   f"scaled_dot_product_attention device_ms="
-                  f"{row['library_device_ms']:.4f}")
-        name = {(128, torch.bfloat16): "mha", (128, torch.float32):
-                "mha_f32", (256, torch.bfloat16): "mha_d256",
-                (32, torch.bfloat16): "mha_d32",
-                (80, torch.bfloat16): "mha_d80"}.get((d, dtype))
+                  f"{row['library_device_ms']:.4f}{clock}")
+        name = ATTN_ROWS.get((d, dtype))
         if seq == ATTN["s"] and causal and hq == ATTN["hq"] and name:
             rows[name] = row
         del q, k, v, qt, kt, vt, got, want, diff
@@ -1261,6 +1365,32 @@ def phase_llm_kernels(floor: dict) -> dict:
               f"; kernel_ms={k_ms:.4f}{device} bound_ms={b_ms:.6f} ({b_by}) "
               f"plain_ms={p_ms:.4f} library_ms=null")
         del r, k, v, w, u, y, st, y_p, st_p, padded
+    # K != V (padded to K = V = 64 by the wrapper) and the reference's
+    # chunk 64 (the kernels run their own chunk 32), each against the plain
+    # version on the unpadded inputs at the caller's chunk
+    for kd, vd, step in ((WKV["k"], WKV["k"] // 2, chunk),
+                         (WKV["k"], WKV["k"], 64)):
+        r, k, w = (randn(b, WKV["t"], h, kd) for _ in range(3))
+        w = torch.sigmoid(w) * 0.93 + 0.05
+        v, u = randn(b, WKV["t"], h, vd), randn(h, kd)
+        y, st = ops.wkv6(r, k, v, w, u, chunk=step)
+        torch.cuda.synchronize()
+        y_p, st_p = wkv6_plain(r, k, v, w, u, step)
+        shape = f"B={b},T={WKV['t']},H={h},K={kd},V={vd},chunk={step},f32"
+        for got, want, name in ((y, y_p, "y"), (st, st_p, "state")):
+            atol = WKV_RTOL * float(want.abs().max())
+            check(got.shape == want.shape
+                  and torch.allclose(got, want, rtol=WKV_RTOL, atol=atol),
+                  f"wkv6 {shape}: {name} {tuple(got.shape)} max_abs_err "
+                  f"{float((got - want).abs().max())} beyond rtol "
+                  f"{WKV_RTOL}, atol {atol}")
+        err = max(float((y - y_p).abs().max()),
+                  float((st - st_p).abs().max()))
+        errs.append(err)
+        print(f"[llm] wkv6 {shape}: rtol {WKV_RTOL} ok (max_abs_err={err:g})"
+              f"; the kernels at K = V = {head_size(kd, vd)}, chunk "
+              f"{WKV_CHUNK}")
+        del r, k, v, w, u, y, st, y_p, st_p
     rows["wkv6"]["max_abs_err"] = max(errs)
 
     rng = np.random.default_rng(1)
@@ -1427,30 +1557,40 @@ def _smoke_agreement(arch: str, overrides: dict) -> float:
     return worst
 
 
+def _row_launches(by_head_dim: dict) -> dict:
+    """The launches of each attention row of ``ATTN_ROWS`` but ``mha_f32``
+    (whose count is the f32 smoke run's): its kernel's launches at its head
+    dim."""
+    from repro_torch.kernels.flash_attention import kernel_for
+
+    return {name: by_head_dim[kernel_for(dtype)][d]
+            for (d, dtype), name in ATTN_ROWS.items() if name != "mha_f32"}
+
+
 def phase_serve() -> dict:
     """Returns the kernels' launch counts read around the serve runs: the
-    wrappers' (``mha`` counted as the tensor-core kernel's own launches at
-    head dim 128, ``mha_d256`` and ``mha_d32`` as its launches at head dims
-    256 and 32) and, as ``mha_f32``, the CUDA-core attention kernel's
-    launches in the f32 smoke run."""
+    wrappers' (the attention rows of ``ATTN_ROWS`` counted as their
+    kernel's own launches at their head dim, ``mha`` the tensor-core
+    kernel's at head dim 128) and, as ``mha_f32``, the CUDA-core attention
+    kernel's launches in the f32 smoke run."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import BY_HEAD_DIM
     from repro_torch.kernels.flash_attention import LAUNCHES as ATTN_LAUNCHES
-    from repro_torch.kernels.flash_attention import SM90_LAUNCHES
     from repro_torch.kernels.rwkv6_scan import KERNELS as WKV_KERNELS
     from repro_torch.launch import serve
 
     torch.backends.cuda.matmul.allow_tf32 = False    # full f32 (smoke check)
     waves = -(-SERVE["requests"] // SERVE["slots"])
-    launches = {"mha": 0, "wkv6": 0, "pchase": 0, "mha_d256": 0,
-                "mha_d32": 0, "mha_d80": 0}
+    launches = {"wkv6": 0, "pchase": 0,
+                **{name: 0 for name in ATTN_ROWS.values()}}
     for arch, kernel in (("qwen3-14b", "mha"), ("rwkv6-3b", "wkv6")):
         cfg = get_config(arch)
         ops.reset_launches()
         res = serve.main(_serve_argv(arch))
         counts = {fn.__name__: fn.launches for fn in ops.LLM_WRAPPERS}
         routes = dict(ATTN_LAUNCHES)
-        by_d = dict(SM90_LAUNCHES)
+        by_d = {route: dict(c) for route, c in BY_HEAD_DIM.items()}
         want = {"mha": 0, "wkv6": 0, "pchase": 0,
                 kernel: cfg.n_layers * waves}
         check(counts == want == res["launches"],
@@ -1458,16 +1598,15 @@ def phase_serve() -> dict:
               f"expected {want}")
         # every mha call of the bf16, head-dim-128 model is a launch of the
         # tensor-core kernel at head dim 128, counted where it launches; no
-        # served config has head dim 16, 32, 64, 80 or 256
+        # launch at another head dim or of the CUDA-core kernel
         want_routes = {"sm90": want["mha"], "cuda_core": 0}
-        want_by_d = {16: 0, 32: 0, 64: 0, 80: 0, 128: want["mha"], 256: 0}
+        want_by_d = {"sm90": {128: want["mha"]} if want["mha"] else {},
+                     "cuda_core": {}}
         check(routes == want_routes and by_d == want_by_d,
               f"{arch}: attention kernel launches {routes}, by head dim "
               f"{by_d}; expected {want_routes}, {want_by_d}")
-        counts["mha"] = by_d[128]
-        counts["mha_d256"] = by_d[256]
-        counts["mha_d32"] = by_d[32]
-        counts["mha_d80"] = by_d[80]
+        counts.pop("mha")
+        counts.update(_row_launches(BY_HEAD_DIM))
         for name, count in counts.items():
             launches[name] += count
         check(all(o.shape == (SERVE["max_new"],) for o in res["outputs"]),
@@ -1484,7 +1623,7 @@ def phase_serve() -> dict:
               f"prefill {res['prefill_s']:.3f}s ({eng.stats['prefills']} "
               f"waves), decode {res['decode_s']:.3f}s "
               f"({eng.stats['decode_steps']} steps); launches {counts}; "
-              f"attention kernels {routes}, tensor-core by head dim {by_d}")
+              f"attention kernels {routes}, by head dim {by_d}")
         prompts = np.stack(res["requests"][:SERVE["slots"]])
         before = dict(eng.stats)
         again = eng.generate_batch(prompts, SERVE["max_new"])
@@ -1546,16 +1685,24 @@ def phase_serve() -> dict:
         ops.reset_launches()
         err = _smoke_agreement(arch, overrides)
         routes = dict(ATTN_LAUNCHES)
+        head_dim = get_config(arch).replace(**overrides).resolved_head_dim
+        f32_by_d = dict(BY_HEAD_DIM["cuda_core"])
         check(routes["sm90"] == 0 and routes["cuda_core"] == ops.mha.launches
-              // 2, f"{arch}: attention kernel launches {routes} for "
-              f"{ops.mha.launches} mha calls (half of them on the CPU)")
+              // 2 and f32_by_d == ({head_dim: routes["cuda_core"]}
+                                    if routes["cuda_core"] else {}),
+              f"{arch}: attention kernel launches {routes}, f32 by head dim "
+              f"{f32_by_d}, for {ops.mha.launches} mha calls (half of them "
+              f"on the CPU)")
         if arch == "qwen3-14b-smoke":
             check(routes["cuda_core"] > 0,
                   f"{arch}: the CUDA-core attention kernel never launched")
             launches["mha_f32"] = routes["cuda_core"]
+        for name, count in _row_launches(BY_HEAD_DIM).items():
+            launches[name] += count
         print(f"[serve] {arch} float32 on the card vs the CPU: logits within "
               f"rtol=atol={SMOKE_TOL} (max_abs_err={err:g}); attention "
-              f"kernel launches on the card {routes}")
+              f"kernel launches on the card {routes}, f32 by head dim "
+              f"{f32_by_d}")
     return launches
 
 
@@ -1592,6 +1739,10 @@ def main() -> int:
         "mha_d256": "src/repro/kernels/flash_attention.py:78",
         "mha_d32": "src/repro/kernels/flash_attention.py:78",
         "mha_d80": "src/repro/kernels/flash_attention.py:78",
+        "mha_d100": "src/repro/kernels/flash_attention.py:78",
+        "mha_f32_d80": "src/repro/kernels/flash_attention.py:78",
+        "mha_f32_d256": "src/repro/kernels/flash_attention.py:78",
+        "mha_f32_d16": "src/repro/kernels/flash_attention.py:78",
         "wkv6": "src/repro/kernels/rwkv6_scan.py:74",
     }
     sources = {
@@ -1606,8 +1757,10 @@ def main() -> int:
     }
     paths = {"mha": "serve qwen3-14b", "wkv6": "serve rwkv6-3b",
              "pchase": None, "mha_d256": None, "mha_d32": None,
-             "mha_d80": None,
-             "mha_f32": "qwen3-14b-smoke f32 prefill on the card"}
+             "mha_d80": None, "mha_d100": None, "mha_f32_d80": None,
+             "mha_f32_d256": None,
+             "mha_f32": "qwen3-14b-smoke f32 prefill on the card",
+             "mha_f32_d16": "qwen3-14b-smoke f32 prefill on the card"}
     kernels = []
     for name, row in rows.items():
         route, source = sources.get(

@@ -1,5 +1,5 @@
-// Flash attention forward (causal or full, grouped-query) for NVIDIA
-// Hopper (sm_90a).
+// Flash attention forward (causal or full, grouped-query) in float32 on the
+// CUDA cores of NVIDIA Hopper (sm_90a).
 //
 // Replaces the Pallas kernel of the reference package:
 //   flash_fwd_kernel <- repro/kernels/flash_attention.py flash_attention
@@ -8,233 +8,445 @@
 // What it computes: o = softmax(q k^T / sqrt(d)) v per (batch, query head),
 // query head h reading kv head h / (Hq / Hkv), with the causal mask
 // row >= col counted from position 0.  Inputs are float32 in the model
-// layout (B, S, H, d), contiguous, and so is the output.  The running max
-// m, the running sum l and the accumulator stay in float32, as in the
-// Pallas kernel.
+// layout (B, S, H, ld), contiguous, and so is the output; ld, the row width
+// in memory, is the head dim d rounded up to a multiple of 4 by the
+// wrapper, whose extra columns are zeros.  The kernel runs the smallest
+// instantiation D >= d of 32, 64, 128 and 256 and reads columns past ld as
+// zeros, which add nothing to q k^T or p v; the scale is always 1/sqrt(d).
+// The running max m, the running sums l and the accumulator stay in
+// float32, as in the Pallas kernel: no TF32, whose 10-bit mantissa would
+// put errors near 1e-3 against a tolerance of 2e-5.
+// bfloat16 runs csrc/flash_attention_sm90.cu (the tensor cores);
+// kernels/flash_attention.py kernel_for chooses by dtype.
 //
-// Which inputs it takes: float32 at every head dim; bfloat16 runs
-// csrc/flash_attention_sm90.cu (the tensor cores, wgmma fed by TMA) at
-// every head dim.  kernels/flash_attention.py kernel_for chooses by dtype.
+// What bounds it on the H100: at the serving shape (B 4, Hq 40, Hkv 8,
+// S 512, d 128, causal) q, k, v and o are 101 MB, 30 us at 3.35 TB/s; the
+// causal products are 10.8 GFLOP, 161 us at the CUDA cores' 67 TFLOP/s.
+// So the FFMA rate bounds it, and the kernel is built to issue FFMAs: an
+// SM issues four warp-FFMAs a clock but serves about one shared-memory
+// wavefront a clock, so every operand read from shared memory has to feed
+// many FFMAs.
 //
-// What bounds it on the H100: at the serving shapes (S = 512, d = 128) the
-// bytes bound (q, k, v read once, o written once) is some 30 us; the
-// float32 operations bound is 160 us.  This kernel
-// runs on the CUDA cores in float32, so the float32 rate (67 TFLOP/s) and
-// the shared-memory traffic of its inner products bound it.
+// What the design does:
+// * One block of four warps per (query tile of 64 rows, query head, batch
+//   element), two blocks on an SM; a warp owns 16 query rows (8 at
+//   D = 256, whose tiles are 32 rows by 32 keys) for the whole kv loop, so
+//   its softmax and its P tile never leave it.  The grid's slowest
+//   dimension is the query tile, last tile first, so the longest causal
+//   loops start first on the whole card.
+// * Within a warp, lane = 16 ty + tx: ty picks half of the warp's rows
+//   (8 a thread; 4 at D = 256), tx the score columns tx + 16 j and the
+//   output columns 64 g + 4 tx .. + 3.  S = Q K^T reads q and k rows four
+//   columns at a time (LDS.128): per four columns, 8 q loads (one address
+//   across a quarter warp: a broadcast) and 4 k loads feed 128 FFMA.
+//   O += P V reads four probabilities of a row (LDS.128, a broadcast) and
+//   float4 rows of V: per four keys 8 + 8 loads feed 256 FFMA.
+// * K is stored with its float4 slots XOR-swizzled by the row (slot
+//   c ^ (row & 7)), so the eight rows a quarter warp reads at one column
+//   lie in eight different bank groups; Q, V and P are read by broadcast or
+//   along rows and need no pad.  At D = 128 a block holds Q, K and V
+//   (32 KB each) and the warps' P tiles (16 KB): 112 KB, two blocks in the
+//   SM's 228 KB.
+// * Tiles arrive by cp.async (16-byte LDGSTS, zero-filled past the row
+//   width), K and V one buffer each, refilled in turn: the next K tile
+//   lands while P V runs, the next V tile while the next Q K^T runs.  Two
+//   barriers a kv tile; the other block on the SM fills the gaps.
+// * The online softmax runs in the registers of the 16 lanes that own a
+//   row (max by four shuffles each tile, sum once at the end), in the log2
+//   domain with log2(e)/sqrt(d) folded into one FFMA before ex2.approx.
+//   The causal mask is applied only where a tile reaches past a warp's
+//   first row.
+// * Copies are cheap to issue: a thread copies one column slot of every
+//   (128 / (D / 4))-th row, so its source steps by a fixed stride and its
+//   destinations fold into constants.
 //
-// What the design does: one block of 256 threads per (query tile of 64
-// rows, query head, batch).  The Pallas grid's sequential kv dimension is a
-// loop inside the block that stops at the diagonal when causal, which
-// replaces the pl.when skip of fully masked kv tiles; the tiles nearest the
-// end of the sequence, which loop longest, are scheduled first.  Q, K and V
-// tiles are held in shared memory as float32 at a row stride of d + 1 (so
-// the 16 threads that read 16 rows at one column hit 16 banks), which is
-// 113.5 KB at d = 128 and needs the opt-in above 48 KB.  Each thread owns a
-// 4 x 4 patch of the 64 x 64 score tile and a 4 x (d / 16) patch of the
-// accumulator; each warp owns 8 rows of the online softmax and reduces them
-// with shuffles.  Sq and Sk must be multiples of 64: the wrapper pads a
-// ragged causal prompt at its tail.
+// What holds it (chip_smoke.py prints its device time, registers, and the
+// FFMAs per shared load of its innermost loops): in the two products'
+// loops FFMAs are about nine instructions in ten and each shared load
+// feeds 10.7 or 16 of them at D = 128, but an SM holds only two blocks of
+// four warps (the registers and shared memory of 16-row warps), two warps
+// a scheduler, to hide the shared loads' latency, the softmax's shuffles
+// and the two barriers of each kv tile.
 //
-// The C entry point takes device pointers, sizes and a cudaStream_t,
-// launches on that stream, does not synchronise, and returns
+// Tried and dropped, each slower or no faster on the H100 than the kept
+// kernel in one call: one block of eight warps with K and V two stages
+// deep; eight warps of 8 rows in 128 registers; a warp skipping the column
+// groups of the diagonal tile that lie wholly above its rows (its block
+// waits for its last warp); other unrolls and FFMA orders.
+// Sq and Sk must be multiples of 64: the wrapper pads a ragged causal
+// prompt at its tail.
+//
+// The C entry point takes device pointers (16-byte aligned), sizes and a
+// cudaStream_t, launches on that stream, does not synchronise, and returns
 // cudaGetLastError() (cudaErrorInvalidValue for a shape it does not take).
 
+#include <cmath>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kBlock = 64;      // query rows and kv rows per tile
-constexpr int kThreads = 256;
-constexpr float kNegInf = -1e30f;
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kMaxDevices = 64;
 
-// Copies a kBlock x D tile, whose rows lie `row_stride` elements apart
-// starting at `src`, into shared memory at row stride D + 1.
+// The tiles of the instantiation at head dim D, in floats.
 template <int D>
+struct Tile {
+  static constexpr int kRowsW = D > 128 ? 8 : 16;  // query rows a warp
+  static constexpr int kBM = kWarps * kRowsW;       // query rows a block
+  static constexpr int kBN = D > 128 ? 32 : 64;     // keys a kv tile
+  static constexpr int kTR = kRowsW / 2;            // rows a thread
+  static constexpr int kTC = kBN / 16;              // score columns a thread
+  static constexpr int kVec = D >= 64 ? 4 : 2;      // V columns a load
+  static constexpr int kGroups = D / (16 * kVec);   // V loads a key
+  static constexpr int kSlots = D / 4;              // float4 slots a row
+  static constexpr int kUnroll = D >= 128 ? 4 : 2;  // of the S = Q K^T loop
+  static constexpr int kQ = 0;                      // Q: kBM x D
+  static constexpr int kK = kQ + kBM * D;           // K: kBN x D
+  static constexpr int kV = kK + kBN * D;           // V: kBN x D
+  static constexpr int kP = kV + kBN * D;           // P: kWarps x kRowsW x kBN
+  static constexpr int kFloats = kP + kWarps * kRowsW * kBN;
+  static constexpr size_t kBytes = sizeof(float) * kFloats;
+  static_assert(kSlots >= 8, "the K swizzle needs 8 slots a row");
+  static_assert(64 % kBM == 0 && kBN % kRowsW == 0, "whole tiles");
+  // two blocks an SM: 228 KB less 1 KB reserved for each
+  static_assert(2 * (kBytes + 1024) <= 233472, "two blocks' shared memory");
+};
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// 16 bytes from global to shared memory; zeros where !valid (nothing is
+// read then, and `src` only has to be a valid address).
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// The float offset of K's float4 slot `c4` of row `j`: XOR-swizzled.
+template <int D>
+__device__ __forceinline__ int k_at(int j, int c4) {
+  return j * D + ((c4 ^ (j & 7)) << 2);
+}
+
+// Copies kRows rows of ld floats (row i at src + i * stride) into a
+// kRows x D tile of shared memory; columns at or past ld arrive as zeros.
+// K's slots are swizzled.  A thread copies one column slot of every
+// kThreads / (D / 4)-th row, so its source steps by a fixed stride and its
+// destinations are constants past the first: a few instructions a copy.
+template <int D, int kRows, bool kSwizzle>
 __device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          size_t row_stride) {
-  for (int e = threadIdx.x; e < kBlock * D; e += kThreads) {
-    const int r = e / D, c = e % D;
-    dst[r * (D + 1) + c] = src[r * row_stride + c];
+                                          size_t stride, int ld) {
+  constexpr int kSlots = D / 4;
+  constexpr int kStep = kThreads / kSlots;         // rows between copies
+  static_assert(kThreads % kSlots == 0 && kRows % kStep == 0, "copies");
+  const int c4 = threadIdx.x % kSlots, r0 = threadIdx.x / kSlots;
+  const bool valid = 4 * c4 < ld;
+  const float* from = valid ? src + r0 * stride + 4 * c4 : src;
+  const size_t step = valid ? kStep * stride : 0;
+#pragma unroll
+  for (int n = 0; n < kRows / kStep; ++n) {
+    const int r = r0 + kStep * n;
+    cp_async16(dst + (kSwizzle ? k_at<D>(r, c4) : r * D + 4 * c4),
+               from + n * step, valid);
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const float* q, const float* k, const float* v,
-                     float* o, int hq, int hkv, int sq, int sk, int causal) {
-  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
-  constexpr int kCols = D / 16;              // accumulator columns a thread
-  extern __shared__ float smem[];
-  float* qs = smem;                          // kBlock x (D + 1)
-  float* ks = qs + kBlock * (D + 1);         // kBlock x (D + 1)
-  float* vs = ks + kBlock * (D + 1);         // kBlock x (D + 1)
-  float* ps = vs + kBlock * (D + 1);         // kBlock x (kBlock + 1)
-  float* alpha_s = ps + kBlock * (kBlock + 1);
-  float* l_s = alpha_s + kBlock;
+__global__ void __launch_bounds__(kThreads, 2)
+    flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
+                     int hq, int hkv, int sq, int sk, int ld, int causal,
+                     float scale_log2) {
+  using T = Tile<D>;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const float* qs = smem + T::kQ;
+  float* kst = smem + T::kK;
+  float* vst = smem + T::kV;
 
-  const int qt = gridDim.x - 1 - blockIdx.x;  // longest causal loops first
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int qt = gridDim.y - 1 - blockIdx.y;       // longest loops first
+  const int h = blockIdx.x % hq, b = blockIdx.x / hq;
   const int hk = h / (hq / hkv);
-  const int q0 = qt * kBlock;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int q0 = qt * T::kBM;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const float scale = 1.0f / sqrtf(static_cast<float>(D));
+  const int ty = lane / 16, tx = lane % 16;
+  const int trow = warp * T::kRowsW + ty * T::kTR; // thread's rows
+  const int first_row = q0 + warp * T::kRowsW;     // warp's first row
+  float* ps = smem + T::kP + warp * T::kRowsW * T::kBN;
+  const float* pt = ps + ty * T::kTR * T::kBN;     // this thread's P rows
 
-  const size_t q_row = static_cast<size_t>(hq) * D;
-  const size_t kv_row = static_cast<size_t>(hkv) * D;
-  load_tile<D>(qs, q + (static_cast<size_t>(b) * sq + q0) * q_row +
-                          static_cast<size_t>(h) * D, q_row);
+  const size_t q_stride = static_cast<size_t>(hq) * ld;
+  const size_t kv_stride = static_cast<size_t>(hkv) * ld;
+  const float* kbase = k + static_cast<size_t>(b) * sk * kv_stride +
+                       static_cast<size_t>(hk) * ld;
+  const float* vbase = v + static_cast<size_t>(b) * sk * kv_stride +
+                       static_cast<size_t>(hk) * ld;
+  const size_t tile_stride = static_cast<size_t>(T::kBN) * kv_stride;
 
-  float m_run[8], l_run[8];                  // rows warp * 8 + i
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    m_run[i] = kNegInf;
-    l_run[i] = 0.0f;
-  }
-  float acc[4][kCols];                       // rows ty + 16 i, cols tx + 16 j
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) acc[i][j] = 0.0f;
+  int n_kt = sk / T::kBN;
+  if (causal) n_kt = min(n_kt, (q0 + T::kBM - 1) / T::kBN + 1);
 
-  int n_kt = sk / kBlock;
-  if (causal) n_kt = min(n_kt, (q0 + kBlock - 1) / kBlock + 1);
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kBlock;
-    __syncthreads();                         // last tile's P.V is done
-    const size_t kv_off = (static_cast<size_t>(b) * sk + k0) * kv_row +
-                          static_cast<size_t>(hk) * D;
-    load_tile<D>(ks, k + kv_off, kv_row);
-    load_tile<D>(vs, v + kv_off, kv_row);
-    __syncthreads();
-
-    // scores: this thread's 4 x 4 patch of q k^T
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
-#pragma unroll 8
-    for (int c = 0; c < D; ++c) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = qs[(ty + 16 * i) * (D + 1) + c];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = ks[(tx + 16 * j) * (D + 1) + c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] += qv[i] * kv[j];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int row = ty + 16 * i, col = tx + 16 * j;
-        float x = s[i][j] * scale;
-        if (causal && q0 + row < k0 + col) x = kNegInf;
-        ps[row * (kBlock + 1) + col] = x;
-      }
-    __syncthreads();
-
-    // online softmax: each warp updates m and l of its 8 rows and turns
-    // their scores into probabilities, two columns a lane
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int row = warp * 8 + i;
-      float* pr = ps + row * (kBlock + 1);
-      const float a = pr[lane], c = pr[lane + 32];
-      float mx = fmaxf(a, c);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m_run[i], mx);
-      const float pa = expf(a - m_new), pc = expf(c - m_new);
-      float sum = pa + pc;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      const float alpha = expf(m_run[i] - m_new);
-      l_run[i] = alpha * l_run[i] + sum;
-      m_run[i] = m_new;
-      pr[lane] = pa;
-      pr[lane + 32] = pc;
-      if (lane == 0) alpha_s[row] = alpha;
-    }
-    __syncthreads();
-
-    // acc = alpha * acc + P V
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float alpha = alpha_s[ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) acc[i][j] *= alpha;
-    }
-#pragma unroll 4
-    for (int c = 0; c < kBlock; ++c) {
-      float pv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = ps[(ty + 16 * i) * (kBlock + 1) + c];
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const float vv = vs[c * (D + 1) + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] += pv[i] * vv;
-      }
-    }
-  }
-
-  if (lane == 0) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) l_s[warp * 8 + i] = fmaxf(l_run[i], 1e-30f);
-  }
+  // Q with K's first tile, then V's: K and V each have one buffer, and
+  // each is refilled while the other product runs
+  load_tile<D, T::kBM, false>(smem + T::kQ,
+                              q + (static_cast<size_t>(b) * sq + q0) *
+                                      q_stride +
+                                  static_cast<size_t>(h) * ld,
+                              q_stride, ld);
+  if (n_kt > 0) load_tile<D, T::kBN, true>(kst, kbase, kv_stride, ld);
+  cp_async_commit();
+  if (n_kt > 0) load_tile<D, T::kBN, false>(vst, vbase, kv_stride, ld);
+  cp_async_commit();
+  cp_async_wait<1>();
   __syncthreads();
+
+  float acc[T::kTR][T::kGroups * T::kVec];
+  float m[T::kTR], l[T::kTR];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = ty + 16 * i;
-    const float l = l_s[row];
-    float* orow = o + ((static_cast<size_t>(b) * sq + q0 + row) * hq + h) * D;
+  for (int i = 0; i < T::kTR; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.0f;
 #pragma unroll
-    for (int j = 0; j < kCols; ++j) orow[tx + 16 * j] = acc[i][j] / l;
+    for (int c = 0; c < T::kGroups * T::kVec; ++c) acc[i][c] = 0.0f;
+  }
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * T::kBN;
+    // K's tile kt is here; every warp attends to key k0 (k0 <= q0 on the
+    // causal loop, and the block's rows start at q0)
+    {
+      // S = Q K^T: rows trow + i, columns tx + 16 jj
+      float s[T::kTR][T::kTC];
+#pragma unroll
+      for (int i = 0; i < T::kTR; ++i)
+#pragma unroll
+        for (int jj = 0; jj < T::kTC; ++jj) s[i][jj] = 0.0f;
+#pragma unroll T::kUnroll
+      for (int c4 = 0; c4 < T::kSlots; ++c4) {
+        float4 kf[T::kTC];
+#pragma unroll
+        for (int jj = 0; jj < T::kTC; ++jj)
+          kf[jj] = lds4(kst + k_at<D>(tx + 16 * jj, c4));
+#pragma unroll
+        for (int i = 0; i < T::kTR; ++i) {
+          const float4 qf = lds4(qs + (trow + i) * D + 4 * c4);
+#pragma unroll
+          for (int jj = 0; jj < T::kTC; ++jj) {
+            s[i][jj] = fmaf(qf.x, kf[jj].x, s[i][jj]);
+            s[i][jj] = fmaf(qf.y, kf[jj].y, s[i][jj]);
+            s[i][jj] = fmaf(qf.z, kf[jj].z, s[i][jj]);
+            s[i][jj] = fmaf(qf.w, kf[jj].w, s[i][jj]);
+          }
+        }
+      }
+      if (causal && k0 + T::kBN - 1 > first_row) {
+#pragma unroll
+        for (int i = 0; i < T::kTR; ++i)
+#pragma unroll
+          for (int jj = 0; jj < T::kTC; ++jj)
+            if (k0 + tx + 16 * jj > q0 + trow + i) s[i][jj] = -INFINITY;
+      }
+
+      // online softmax over the row's 16 lanes, in log2 units
+#pragma unroll
+      for (int i = 0; i < T::kTR; ++i) {
+        float mx = s[i][0];
+#pragma unroll
+        for (int jj = 1; jj < T::kTC; ++jj) mx = fmaxf(mx, s[i][jj]);
+#pragma unroll
+        for (int off = 8; off > 0; off >>= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        const float m_new = fmaxf(m[i], mx);      // finite: key k0 is seen
+        const float mc = m_new * scale_log2;
+        const float alpha = ex2(m[i] * scale_log2 - mc);
+        float sum = 0.0f;
+#pragma unroll
+        for (int jj = 0; jj < T::kTC; ++jj) {
+          s[i][jj] = ex2(fmaf(s[i][jj], scale_log2, -mc));
+          sum += s[i][jj];
+        }
+        l[i] = fmaf(l[i], alpha, sum);
+        m[i] = m_new;
+#pragma unroll
+        for (int c = 0; c < T::kGroups * T::kVec; ++c) acc[i][c] *= alpha;
+      }
+
+#pragma unroll
+      for (int i = 0; i < T::kTR; ++i)
+#pragma unroll
+        for (int jj = 0; jj < T::kTC; ++jj)
+          ps[(ty * T::kTR + i) * T::kBN + tx + 16 * jj] = s[i][jj];
+    }
+    cp_async_wait<0>();                            // V's tile kt
+    __syncthreads();                               // K's buffer is free
+    if (kt + 1 < n_kt) {
+      load_tile<D, T::kBN, true>(kst, kbase + (kt + 1) * tile_stride,
+                                 kv_stride, ld);
+      cp_async_commit();
+    }
+    {
+      const float* vs = vst;
+
+      // O += P V: rows trow + i, columns 64 g + kVec tx .. + kVec - 1
+#pragma unroll 2
+      for (int j4 = 0; j4 < T::kBN / 4; ++j4) {
+        float4 pf[T::kTR];
+#pragma unroll
+        for (int i = 0; i < T::kTR; ++i)
+          pf[i] = lds4(pt + i * T::kBN + 4 * j4);
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const float* vrow = vs + (4 * j4 + jj) * D + T::kVec * tx;
+          float vf[T::kGroups * T::kVec];
+#pragma unroll
+          for (int g = 0; g < T::kGroups; ++g) {
+            if constexpr (T::kVec == 4) {
+              const float4 x = lds4(vrow + 16 * T::kVec * g);
+              vf[4 * g] = x.x;
+              vf[4 * g + 1] = x.y;
+              vf[4 * g + 2] = x.z;
+              vf[4 * g + 3] = x.w;
+            } else {
+              const float2 x =
+                  *reinterpret_cast<const float2*>(vrow + 16 * T::kVec * g);
+              vf[2 * g] = x.x;
+              vf[2 * g + 1] = x.y;
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < T::kTR; ++i) {
+            const float p = jj == 0   ? pf[i].x
+                            : jj == 1 ? pf[i].y
+                            : jj == 2 ? pf[i].z
+                                      : pf[i].w;
+#pragma unroll
+            for (int c = 0; c < T::kGroups * T::kVec; ++c)
+              acc[i][c] = fmaf(p, vf[c], acc[i][c]);
+          }
+        }
+      }
+    }
+    cp_async_wait<0>();                            // K's tile kt + 1
+    __syncthreads();                               // V's and P's buffers
+    if (kt + 1 < n_kt) {                           // are free
+      load_tile<D, T::kBN, false>(vst, vbase + (kt + 1) * tile_stride,
+                                  kv_stride, ld);
+      cp_async_commit();
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < T::kTR; ++i) {
+    float sum = l[i];
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    const float inv = 1.0f / fmaxf(sum, 1e-30f);
+    float* orow = o + (static_cast<size_t>(b) * sq + q0 + trow + i) *
+                          q_stride +
+                  static_cast<size_t>(h) * ld;
+#pragma unroll
+    for (int g = 0; g < T::kGroups; ++g) {
+      const int col = 16 * T::kVec * g + T::kVec * tx;
+      if (col >= ld) continue;
+      const float* a = acc[i] + T::kVec * g;
+      if constexpr (T::kVec == 4) {
+        *reinterpret_cast<float4*>(orow + col) =
+            make_float4(a[0] * inv, a[1] * inv, a[2] * inv, a[3] * inv);
+      } else {
+        *reinterpret_cast<float2*>(orow + col) =
+            make_float2(a[0] * inv, a[1] * inv);
+      }
+    }
   }
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int b,
-           int hq, int hkv, int sq, int sk, int causal, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * (3 * kBlock * (D + 1) + kBlock * (kBlock + 1) +
-                       2 * kBlock);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+int launch(const float* q, const float* k, const float* v, float* o, int d,
+           int ld, int b, int hq, int hkv, int sq, int sk, int causal,
+           cudaStream_t stream) {
+  using T = Tile<D>;
+  // per device, set once: the shared-memory opt-in above 48 KB, and the
+  // whole of the SM's 228 KB as shared memory for two blocks
+  static bool ready[kMaxDevices] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(sq / kBlock, hq, b);
-  flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), hq, hkv, sq, sk,
-      causal);
+  if (device >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!ready[device]) {
+    err = cudaFuncSetAttribute(flash_fwd_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(T::kBytes));
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          flash_fwd_kernel<D>, cudaFuncAttributePreferredSharedMemoryCarveout,
+          cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ready[device] = true;
+  }
+  const long long heads = static_cast<long long>(b) * hq;
+  const int tiles = (sq + T::kBM - 1) / T::kBM;
+  if (heads > 0x7fffffffLL || tiles > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(d));
+  const dim3 grid(static_cast<unsigned>(heads), tiles);
+  flash_fwd_kernel<D><<<grid, kThreads, T::kBytes, stream>>>(
+      q, k, v, o, hq, hkv, sq, sk, ld, causal, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// float32 only.  q (b, sq, hq, d); k, v (b, sk, hkv, d); o (b, sq, hq, d).
+// float32 only.  q (b, sq, hq, ld); k, v (b, sk, hkv, ld); o (b, sq, hq,
+// ld); d <= ld the head dim (the scale is 1/sqrt(d)), ld a multiple of 4 at
+// most 256 whose columns past d are zeros; sq and sk multiples of 64; every
+// pointer 16-byte aligned.  The instantiation is the smallest of 32, 64,
+// 128 and 256 that holds ld.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, int b, int hq,
-                                   int hkv, int sq, int sk, int d, int causal,
-                                   void* stream) {
-  if (hkv <= 0 || hq % hkv != 0 || sq % kBlock != 0 || sk % kBlock != 0)
+                                   int hkv, int sq, int sk, int d, int ld,
+                                   int causal, void* stream) {
+  if (hkv <= 0 || hq % hkv != 0 || sq % 64 != 0 || sk % 64 != 0 || d < 1 ||
+      ld < d || ld % 4 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) %
+          16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (b == 0 || hq == 0 || sq == 0) return static_cast<int>(cudaSuccess);
+  const auto* qf = static_cast<const float*>(q);
+  const auto* kf = static_cast<const float*>(k);
+  const auto* vf = static_cast<const float*>(v);
+  auto* of = static_cast<float*>(o);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 16: return launch<16>(q, k, v, o, b, hq, hkv, sq, sk, causal, s);
-    case 32: return launch<32>(q, k, v, o, b, hq, hkv, sq, sk, causal, s);
-    case 64: return launch<64>(q, k, v, o, b, hq, hkv, sq, sk, causal, s);
-    case 128: return launch<128>(q, k, v, o, b, hq, hkv, sq, sk, causal, s);
-    case 256: return launch<256>(q, k, v, o, b, hq, hkv, sq, sk, causal, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (ld <= 32)
+    return launch<32>(qf, kf, vf, of, d, ld, b, hq, hkv, sq, sk, causal, s);
+  if (ld <= 64)
+    return launch<64>(qf, kf, vf, of, d, ld, b, hq, hkv, sq, sk, causal, s);
+  if (ld <= 128)
+    return launch<128>(qf, kf, vf, of, d, ld, b, hq, hkv, sq, sk, causal, s);
+  if (ld <= 256)
+    return launch<256>(qf, kf, vf, of, d, ld, b, hq, hkv, sq, sk, causal, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

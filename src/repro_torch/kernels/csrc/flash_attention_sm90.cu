@@ -3,7 +3,7 @@
 // Replaces the Pallas kernel of the reference package:
 //   flash_fwd_sm90_kernel <- repro/kernels/flash_attention.py flash_attention
 //                            (pallas_call at :94, body _kernel)
-// for bfloat16 inputs at head dims 16, 32, 64, 80, 128 and 256; float32 runs
+// for bfloat16 inputs at every head dim from 1 to 256; float32 runs
 // csrc/flash_attention.cu (CUDA cores).  kernels/flash_attention.py chooses
 // between them by dtype alone.
 //
@@ -46,14 +46,15 @@
 //   the ring 2 x (32 + 32) KB and two 16 KB output tiles; at d = 256 Q
 //   64 KB, the ring 2 x (32 + 32) KB and two 16 KB output half-tiles,
 //   225 KB of the 227 KB a block may have.
-// * Head dims 16 and 32 run the d 64 instantiation, and head dim 80
-//   (zamba2-2.7b's) the d 128 one, on maps whose inner extent and row
-//   stride are the caller's d: a box of 64 columns reads zeros past column
-//   d, which add nothing to Q K^T or P V, and the store writes nothing past
-//   it.  The rows are 32, 64 and 160 bytes apart, multiples of 16 as TMA
-//   requires.  At d 16 and 32 half or more of the tensor work is spent on
-//   the zeros, at d 80 three eighths; a tile of 32- or 64-byte swizzle
-//   would not be.
+// * A head dim d runs the smallest instantiation D >= d of 64, 128 and
+//   256 (d 16 and 32 the d 64 one, zamba2-2.7b's d 80 the d 128 one), on
+//   maps whose inner extent and row stride are the row width ld: d itself
+//   where it is a multiple of 8, else d padded with zero columns by the
+//   wrapper, since TMA takes rows 16 bytes apart.  A box of 64 columns
+//   reads zeros past column ld, which add nothing to Q K^T or P V, and the
+//   store writes nothing past it; the scale stays 1/sqrt(d).  At d 16 and
+//   32 half or more of the tensor work is spent on the zeros, at d 80 three
+//   eighths; a tile of 32- or 64-byte swizzle would not be.
 // * S = Q K^T is wgmma m64nNk16 (N = kBN) with both operands in shared
 //   memory, K read K-major as it lies.  The online softmax runs on the
 //   accumulator fragment in registers; a row's max is reduced over the
@@ -725,17 +726,18 @@ bool make_map(CUtensorMap* map, const void* ptr, int d, int heads, int seq,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// D is the instantiation, d (<= D) the caller's head dim: the maps span d
-// columns, and the boxes' columns past d load as zeros.
+// D is the instantiation, ld (<= D) the row width in memory and d (<= ld)
+// the caller's head dim: the maps span ld columns, the boxes' columns past
+// ld load as zeros, and the scale is 1/sqrt(d).
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int d,
-           int b, int hq, int hkv, int sq, int sk, int causal,
+           int ld, int b, int hq, int hkv, int sq, int sk, int causal,
            cudaStream_t stream) {
   CUtensorMap mq, mk, mv, mo;
-  if (!make_map(&mq, q, d, hq, sq, b, kBM) ||
-      !make_map(&mk, k, d, hkv, sk, b, Layout<D>::kBN) ||
-      !make_map(&mv, v, d, hkv, sk, b, Layout<D>::kBN) ||
-      !make_map(&mo, o, d, hq, sq, b, kBM / 2))
+  if (!make_map(&mq, q, ld, hq, sq, b, kBM) ||
+      !make_map(&mk, k, ld, hkv, sk, b, Layout<D>::kBN) ||
+      !make_map(&mv, v, ld, hkv, sk, b, Layout<D>::kBN) ||
+      !make_map(&mo, o, ld, hq, sq, b, kBM / 2))
     return static_cast<int>(cudaErrorInvalidValue);
   constexpr int smem = Layout<D>::kBytes;
   // per device, set once: the shared-memory opt-in and the SM count
@@ -767,15 +769,17 @@ int launch(const void* q, const void* k, const void* v, void* o, int d,
 
 }  // namespace
 
-// bfloat16 only.  q (b, sq, hq, d); k, v (b, sk, hkv, d); o (b, sq, hq, d);
-// d 16, 32, 64, 80, 128 or 256 (16 and 32 on the d 64 instantiation, 80
-// on the d 128 one); sq and
-// sk multiples of 64; every pointer 16-byte aligned.
+// bfloat16 only.  q (b, sq, hq, ld); k, v (b, sk, hkv, ld); o (b, sq, hq,
+// ld); d <= ld the head dim (the scale is 1/sqrt(d)), ld a multiple of 8 (TMA
+// takes rows 16 bytes apart) at most 256 whose columns past d are zeros; sq
+// and sk multiples of 64; every pointer 16-byte aligned.  The instantiation
+// is the smallest of 64, 128 and 256 that holds ld.
 extern "C" int flash_attention_sm90_fwd(const void* q, const void* k,
                                         const void* v, void* o, int b, int hq,
-                                        int hkv, int sq, int sk, int d,
+                                        int hkv, int sq, int sk, int d, int ld,
                                         int causal, void* stream) {
-  if (hkv <= 0 || hq % hkv != 0 || sq % 64 != 0 || sk % 64 != 0)
+  if (hkv <= 0 || hq % hkv != 0 || sq % 64 != 0 || sk % 64 != 0 || d < 1 ||
+      ld < d || ld % 8 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) %
@@ -784,13 +788,11 @@ extern "C" int flash_attention_sm90_fwd(const void* q, const void* k,
   if (b == 0 || hq == 0 || sq == 0) return static_cast<int>(cudaSuccess);
   if (sk == 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 16: return launch<64>(q, k, v, o, d, b, hq, hkv, sq, sk, causal, s);
-    case 32: return launch<64>(q, k, v, o, d, b, hq, hkv, sq, sk, causal, s);
-    case 64: return launch<64>(q, k, v, o, d, b, hq, hkv, sq, sk, causal, s);
-    case 80: return launch<128>(q, k, v, o, d, b, hq, hkv, sq, sk, causal, s);
-    case 128: return launch<128>(q, k, v, o, d, b, hq, hkv, sq, sk, causal, s);
-    case 256: return launch<256>(q, k, v, o, d, b, hq, hkv, sq, sk, causal, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (ld <= 64)
+    return launch<64>(q, k, v, o, d, ld, b, hq, hkv, sq, sk, causal, s);
+  if (ld <= 128)
+    return launch<128>(q, k, v, o, d, ld, b, hq, hkv, sq, sk, causal, s);
+  if (ld <= 256)
+    return launch<256>(q, k, v, o, d, ld, b, hq, hkv, sq, sk, causal, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -4,97 +4,124 @@ Two CUDA C++ kernels replace the reference's Pallas ``flash_attention``
 (``repro/kernels/flash_attention.py:78``); ``kernel_for`` picks one by dtype
 alone:
 
-* ``csrc/flash_attention_sm90.cu`` for bfloat16 at ``SM90_HEAD_DIMS``: the
-  tensor cores (``wgmma`` on tiles that TMA loads), with the probabilities
-  rounded to bfloat16 for the P.V product, as the reference's f32 dot at
-  default precision does on the TPU's matrix unit; head dims 16 and 32 run
-  its d 64 instantiation and head dim 80 its d 128 one, zeros past column
-  d;
-* ``csrc/flash_attention.cu`` for float32 at ``CUDA_CORE_HEAD_DIMS``: the
-  CUDA cores, all in float32.
+* ``csrc/flash_attention_sm90.cu`` for bfloat16: the tensor cores
+  (``wgmma`` on tiles that TMA loads), with the probabilities rounded to
+  bfloat16 for the P.V product, as the reference's f32 dot at default
+  precision does on the TPU's matrix unit;
+* ``csrc/flash_attention.cu`` for float32: the CUDA cores, all in float32.
 
-Each source's note says what bounds it and how it is laid out.  This module
-launches them and holds their plain PyTorch version.
+Both take every head dim d from 1 to ``MAX_HEAD_DIM`` by one rule
+(``instantiation``): d runs the smallest instantiation D >= d of its
+kernel's ``INSTANTIATIONS``, whose columns past d read as zeros and add
+nothing.  Each kernel reads rows whose width in memory is a multiple of 16
+bytes (``row_width``); for a head dim that is not, the wrapper pads the
+columns with zeros and drops them from the output.  The scale is always
+``1/sqrt(d)`` of the caller's d.  Each source's note says what bounds it
+and how it is laid out.  This module launches them and holds their plain
+PyTorch version.
 
 The kernels and the plain version take the model layout: q (B, Sq, Hq, d),
 k and v (B, Sk, Hkv, d), with query head h reading kv head
 ``h // (Hq // Hkv)``, the causal mask ``row >= col`` counted from position
 0, the scores scaled by ``1/sqrt(d)`` and the output in q's dtype.  The
-kernels take Sq and Sk in multiples of ``BLOCK`` and d in their head dims,
-float32 or bfloat16; the padding of a ragged causal prompt is the
-wrapper's (``ops.mha``).  Inputs are validated there; the functions here
-assume contiguous tensors of matching shapes on one device.
+kernels take Sq and Sk in multiples of ``BLOCK``, float32 or bfloat16; the
+padding of a ragged causal prompt is the wrapper's (``ops.mha``).  Inputs
+are validated there; the functions here assume contiguous tensors of
+matching shapes on one device.
 """
 from __future__ import annotations
 
 import math
+from collections import Counter
 
 import torch
+import torch.nn.functional as F
 
 from ._build import check_launch, load_library
 
-__all__ = ["BLOCK", "HEAD_DIMS", "SM90_HEAD_DIMS", "CUDA_CORE_HEAD_DIMS",
-           "SM90_TILES", "NEG_INF", "head_dims",
-           "SOURCES", "LAUNCHES", "SM90_LAUNCHES", "kernel_for",
+__all__ = ["BLOCK", "MAX_HEAD_DIM", "INSTANTIATIONS",
+           "ROW_ELEMS", "NEG_INF", "instantiation", "row_width", "sm90_tile",
+           "SOURCES", "LAUNCHES", "BY_HEAD_DIM",
+           "kernel_for",
            "flash_attention_kernel",
            "flash_attention_plain", "flash_attention_sm90_plain"]
 
-BLOCK = 64                      # kBlock of csrc/flash_attention.cu
-SM90_HEAD_DIMS = (16, 32, 64, 80, 128, 256)   # flash_attention_sm90.cu's switch
-CUDA_CORE_HEAD_DIMS = (16, 32, 64, 128, 256)  # flash_attention.cu's switch
-HEAD_DIMS = SM90_HEAD_DIMS      # every head dim a kernel takes, in some dtype
-# keys a tile of the tensor-core kernel, by head dim: Layout<D>::kBN of the
-# instantiation the head dim runs on (d 16 and 32 run D = 64, d 80 D = 128)
-SM90_TILES = {16: 128, 32: 128, 64: 128, 80: 128, 128: 128, 256: 64}
+BLOCK = 64                      # the kernels' sequence granule
+MAX_HEAD_DIM = 256              # the widest instantiation of either kernel
 NEG_INF = -1e30
 # kernel_for's answer -> the source of that kernel, under kernels/
 SOURCES = {"sm90": "csrc/flash_attention_sm90.cu",
            "cuda_core": "csrc/flash_attention.cu"}
+# kernel_for's answer -> the head dims its entry point instantiates, and
+# the multiple of elements its rows take in memory (16 bytes: TMA's row
+# stride for bfloat16, cp.async's copy for float32)
+INSTANTIATIONS = {"sm90": (64, 128, 256), "cuda_core": (32, 64, 128, 256)}
+ROW_ELEMS = {"sm90": 8, "cuda_core": 4}
+
+
+def kernel_for(dtype: torch.dtype) -> str:
+    """Which kernel takes inputs of ``dtype``: ``"sm90"`` (tensor cores) for
+    bfloat16, else ``"cuda_core"`` (float32).  The choice depends on nothing
+    else."""
+    return "sm90" if dtype == torch.bfloat16 else "cuda_core"
+
+
+def instantiation(dtype: torch.dtype, d: int) -> int:
+    """The instantiation that head dim ``d`` runs in ``dtype``'s kernel: the
+    smallest of its ``INSTANTIATIONS`` that is at least d.  Raises for a
+    head dim outside 1..``MAX_HEAD_DIM``."""
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} outside 1..{MAX_HEAD_DIM}: the "
+                         f"attention kernels take at most {MAX_HEAD_DIM}")
+    return next(D for D in INSTANTIATIONS[kernel_for(dtype)] if D >= d)
+
+
+def row_width(dtype: torch.dtype, d: int) -> int:
+    """The row width in memory that ``dtype``'s kernel reads at head dim
+    ``d``: d rounded up to ``ROW_ELEMS`` (at most the instantiation)."""
+    unit = ROW_ELEMS[kernel_for(dtype)]
+    return -(-d // unit) * unit
+
+
+def sm90_tile(d: int) -> int:
+    """The keys a tile of the tensor-core kernel holds at head dim ``d``:
+    ``Layout<D>::kBN`` of the instantiation D that d runs on."""
+    return 64 if instantiation(torch.bfloat16, d) > 128 else 128
+
+
 # Launches of each kernel, raised where it is launched (``ops.mha`` counts
-# its calls, whichever kernel they take), and of the tensor-core kernel by
-# head dim; ``ops.reset_launches`` zeroes them.
+# its calls, whichever kernel they take), and of each kernel by the
+# caller's head dim (``BY_HEAD_DIM``, keyed as ``SOURCES``);
+# ``ops.reset_launches`` zeroes them.
 LAUNCHES = {name: 0 for name in SOURCES}
-SM90_LAUNCHES = {d: 0 for d in SM90_HEAD_DIMS}
-
-
-def kernel_for(dtype: torch.dtype, d: int) -> str:
-    """Which kernel takes inputs of ``dtype`` at head dim ``d``: ``"sm90"``
-    (tensor cores) for bfloat16 at ``SM90_HEAD_DIMS``, else ``"cuda_core"``
-    (float32).  The choice depends on nothing else."""
-    return ("sm90" if dtype == torch.bfloat16 and d in SM90_HEAD_DIMS
-            else "cuda_core")
-
-
-def head_dims(dtype: torch.dtype) -> tuple:
-    """The head dims the kernel that takes ``dtype`` runs: bfloat16's
-    tensor-core kernel or float32's CUDA-core one."""
-    return SM90_HEAD_DIMS if dtype == torch.bfloat16 else CUDA_CORE_HEAD_DIMS
+BY_HEAD_DIM = {name: Counter() for name in SOURCES}
+_ENTRIES = {"sm90": "flash_attention_sm90_fwd",
+            "cuda_core": "flash_attention_fwd"}
 
 
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            causal: bool) -> torch.Tensor:
-    """CUDA flash attention by the kernel ``kernel_for(q.dtype, d)`` names:
-    each query tile of each head and batch element walks the kv tiles in a
-    loop that stops at the diagonal when ``causal``."""
+    """CUDA flash attention by the kernel ``kernel_for(q.dtype)`` names, at
+    ``instantiation(q.dtype, d)``: each query tile of each head and batch
+    element walks the kv tiles in a loop that stops at the diagonal when
+    ``causal``.  Columns are padded with zeros to ``row_width`` and dropped
+    from the output."""
     lib, _ = load_library()
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
+    route = kernel_for(q.dtype)
+    ld = row_width(q.dtype, d)
+    if ld != d:
+        q, k, v = (F.pad(x, (0, ld - d)) for x in (q, k, v))
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    if kernel_for(q.dtype, d) == "sm90":
-        check_launch(lib, "flash_attention_sm90_fwd",
-                     lib.flash_attention_sm90_fwd(
-                         q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                         out.data_ptr(), b, hq, hkv, sq, sk, d, int(causal),
-                         stream))
-        LAUNCHES["sm90"] += 1
-        SM90_LAUNCHES[d] += 1
-    else:
-        check_launch(lib, "flash_attention_fwd", lib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq,
-            hkv, sq, sk, d, int(causal), stream))
-        LAUNCHES["cuda_core"] += 1
-    return out
+    entry = _ENTRIES[route]
+    check_launch(lib, entry, getattr(lib, entry)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq,
+        hkv, sq, sk, d, ld, int(causal), stream))
+    LAUNCHES[route] += 1
+    BY_HEAD_DIM[route][d] += 1
+    return out if ld == d else out[..., :d]
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -118,7 +145,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention_sm90_plain(q: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor, causal: bool) -> torch.Tensor:
     """The tensor-core kernel's numerics in plain PyTorch: float32 scores, an
-    online softmax over ``SM90_TILES[d]``-key tiles in the log2 domain, the
+    online softmax over ``sm90_tile(d)``-key tiles in the log2 domain, the
     unnormalised probabilities rounded to bfloat16 for P.V (their sum taken
     before rounding), the output divided by that sum and rounded to q's
     dtype.  The same inputs and layout as ``flash_attention_plain``."""
@@ -132,7 +159,7 @@ def flash_attention_sm90_plain(q: torch.Tensor, k: torch.Tensor,
     l = torch.zeros((b, hq, sq, 1), device=q.device)
     acc = torch.zeros((b, hq, sq, d), device=q.device)
     rows = torch.arange(sq, device=q.device)[:, None]
-    tile = SM90_TILES[d]
+    tile = sm90_tile(d)
     for n0 in range(0, sk, tile):
         sc = qf @ kf[:, :, n0:n0 + tile].transpose(-1, -2)
         if causal:

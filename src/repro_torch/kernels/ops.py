@@ -16,13 +16,13 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from .flash_attention import (BLOCK, LAUNCHES, SM90_LAUNCHES,
+from .flash_attention import (BLOCK, BY_HEAD_DIM, LAUNCHES,
                               flash_attention_kernel, flash_attention_plain,
-                              head_dims)
+                              instantiation)
 from .pchase_probe import (eviction_batch_plain, eviction_kernel_batch,
                            pchase_batch_plain, pchase_kernel,
                            pchase_kernel_batch, pchase_plain)
-from .rwkv6_scan import wkv6_kernel, wkv6_plain
+from .rwkv6_scan import CHUNK, head_size, pad_wkv, wkv6_kernel, wkv6_plain
 from .stream_probe import (stream_read_kernel, stream_read_plain,
                            stream_write_kernel, stream_write_plain)
 
@@ -139,8 +139,8 @@ def _pad_seq(x: torch.Tensor, length: int, value: float = 0.0):
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         causal: bool = True) -> torch.Tensor:
     """Flash attention over model-layout activations: q (B, Sq, Hq, d),
-    k and v (B, Sk, Hkv, d), float32 or bfloat16 -> (B, Sq, Hq, d) in q's
-    dtype.
+    k and v (B, Sk, Hkv, d), float32 or bfloat16, any head dim d from 1 to
+    ``flash_attention.MAX_HEAD_DIM`` -> (B, Sq, Hq, d) in q's dtype.
 
     The kernel takes sequence lengths in multiples of ``BLOCK``.  A ragged
     causal call with Sq <= Sk is padded at the tail and the padded rows
@@ -160,9 +160,7 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if hkv == 0 or hq % hkv:
         raise ValueError(f"{hq} query heads are not a multiple of {hkv} kv "
                          f"heads")
-    if d not in head_dims(q.dtype):
-        raise ValueError(f"head dim {d} not in {head_dims(q.dtype)} for "
-                         f"{q.dtype}")
+    instantiation(q.dtype, d)               # raises past MAX_HEAD_DIM
     ragged = sq % BLOCK or sk % BLOCK
     if ragged and not (causal and sq <= sk):
         raise ValueError(f"lengths {sq}, {sk} are not multiples of {BLOCK}; "
@@ -180,13 +178,17 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
          u: torch.Tensor, *,
          chunk: int = 32) -> tuple[torch.Tensor, torch.Tensor]:
     """Chunked WKV6 from a zero state over model-layout float32 activations:
-    r, k, w (B, T, H, K), v (B, T, H, V), u (H, K) -> (y (B, T, H, V),
-    state (B, H, K, V)), both float32.
+    r, k, w (B, T, H, K), v (B, T, H, V), u (H, K), K and V up to 128 ->
+    (y (B, T, H, V), state (B, H, K, V)), both float32.
 
-    A ragged tail is padded up to ``chunk`` with r = k = v = 0 and w = 1: a
-    padded step adds k v^T = 0 to the state and decays it by 1, so the real
-    positions' y and the final state are exact.  There is no incoming
-    state: the kernel starts from zero, as prefill does.
+    The kernels take K = V in ``HEAD_SIZES`` and T in whole chunks of their
+    own ``CHUNK``, which they run whatever ``chunk`` says: the chunked form
+    computes the same function at every chunk.  ``pad_wkv`` pads K, V and
+    a ragged tail for them with terms that add exactly zero, and the
+    padding is sliced off the result.  The plain version on the CPU takes
+    any K and V and ``chunk`` as it is; only a ragged tail is padded for
+    it, the same way.  There is no incoming state: the kernel starts from
+    zero, as prefill does.
     """
     dev = r.device
     _check("r", r, torch.float32, 4, dev)
@@ -194,6 +196,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
         _check(name, t, torch.float32, 4, dev)
     _check("u", u, torch.float32, 2, dev)
     b, t, h, kd = r.shape
+    vd = v.shape[-1]
     if k.shape != r.shape or w.shape != r.shape or v.shape[:3] != (b, t, h) \
             or tuple(u.shape) != (h, kd):
         raise ValueError(f"shapes r {tuple(r.shape)}, k {tuple(k.shape)}, "
@@ -201,13 +204,19 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
                          f"u {tuple(u.shape)} do not match")
     if chunk <= 0:
         raise ValueError(f"chunk must be positive, got {chunk}")
+    size = head_size(kd, vd)                # raises past 128, as the card
     fn = _route(dev, wkv6_kernel, wkv6_plain)
-    if t % chunk == 0:
-        return fn(r, k, v, w, u, chunk)
-    tp = -(-t // chunk) * chunk
-    y, state = fn(_pad_seq(r, tp), _pad_seq(k, tp), _pad_seq(v, tp),
-                  _pad_seq(w, tp, 1.0), u, chunk)
-    return y[:, :t], state
+    if fn is wkv6_plain:
+        tp = -(-t // chunk) * chunk
+        y, state = fn(_pad_seq(r, tp), _pad_seq(k, tp), _pad_seq(v, tp),
+                      _pad_seq(w, tp, 1.0), u, chunk)
+        return y[:, :t], state
+    y, state = fn(*pad_wkv(r, k, v, w, u, size, CHUNK), CHUNK)
+    if y.shape[1] != t or size != vd:
+        y = y[:, :t, :, :vd]
+    if size != kd or size != vd:
+        state = state[:, :, :kd, :vd]
+    return y, state
 
 
 @_counted
@@ -227,9 +236,10 @@ LLM_WRAPPERS = (mha, wkv6, pchase)
 
 def reset_launches() -> None:
     """Zero every wrapper's ``launches`` count and the attention kernels'
-    own counts (``flash_attention.LAUNCHES`` and ``SM90_LAUNCHES``)."""
+    own counts (``flash_attention.LAUNCHES`` and ``BY_HEAD_DIM``)."""
     for fn in WRAPPERS + LLM_WRAPPERS:
         fn.launches = 0
-    for counts in (LAUNCHES, SM90_LAUNCHES):
-        for key in counts:
-            counts[key] = 0
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+    for counts in BY_HEAD_DIM.values():
+        counts.clear()

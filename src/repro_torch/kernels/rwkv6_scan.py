@@ -10,8 +10,10 @@ the state.
 
 All take r, k, w (B, T, H, K), v (B, T, H, V) and u (H, K) in float32 and
 return y (B, T, H, V) and the final state (B, H, K, V) in float32, from a
-zero state, with T a multiple of ``chunk``; the padding of a ragged tail is
-the wrapper's (``ops.wkv6``).  ``chunked_scan`` is the chunk-parallel math
+zero state, with T a multiple of ``chunk``.  The kernels take chunk
+``CHUNK`` and K = V in ``HEAD_SIZES``; ``pad_wkv`` pads other shapes to
+theirs (``head_size``) with terms that add exactly zero, and ``ops.wkv6``
+slices the result back.  ``chunked_scan`` is the chunk-parallel math
 from any incoming state, which the model's ``wkv_chunked`` also runs;
 ``wkv6_plain`` is it from a zero state, and ``wkv6_split_plain`` the two
 kernels' split of the same function.  Inputs are validated by the wrapper;
@@ -25,8 +27,9 @@ import torch.nn.functional as F
 
 from ._build import check_launch, load_library
 
-__all__ = ["CHUNK", "HEAD_SIZES", "KERNELS", "scratch_floats", "wkv6_kernel",
-           "wkv6_plain", "wkv6_split_plain", "chunked_scan"]
+__all__ = ["CHUNK", "HEAD_SIZES", "KERNELS", "scratch_floats", "head_size",
+           "pad_wkv", "wkv6_kernel", "wkv6_plain", "wkv6_split_plain",
+           "chunked_scan"]
 
 CHUNK = 32                          # kC of csrc/wkv6.cu: one step a lane
 HEAD_SIZES = (8, 16, 32, 64, 128)   # K = V, as wkv6_fwd's switch takes them
@@ -39,6 +42,36 @@ def scratch_floats(b: int, t: int, h: int, kd: int) -> int:
     (b, h, chunk), r exp(L_{j-1}) and k exp(L_C - L) (C x K each) and
     exp(L_C) (K); ``scratch_floats`` of the source, which checks it."""
     return b * h * (t // CHUNK) * (2 * kd * CHUNK + kd)
+
+
+def head_size(kd: int, vd: int) -> int:
+    """The kernels' head size for K = ``kd`` and V = ``vd``: the smallest of
+    ``HEAD_SIZES`` that holds both.  Raises past the largest, 128, which
+    the reference's own note sizes its kernel for."""
+    for size in HEAD_SIZES:
+        if size >= max(kd, vd):
+            return size
+    raise ValueError(f"wkv6 takes K and V up to {HEAD_SIZES[-1]}, got K "
+                     f"{kd}, V {vd}")
+
+
+def pad_wkv(r, k, v, w, u, size: int, chunk: int) -> tuple:
+    """r, k, v, w, u padded to K = V = ``size`` and T a multiple of
+    ``chunk``: r = k = 0, w = 1 and u = 0 in the padded K columns, v = 0 in
+    the padded V columns, r = k = v = 0 and w = 1 on the padded steps.  A
+    padded channel's state stays 0 and a padded step decays it by 1 and adds
+    nothing, so every real output and state entry is exact.  The inputs
+    come back as they are where nothing is padded."""
+    t, kd, vd = r.shape[1], r.shape[3], v.shape[3]
+    dt, dk, dv = -t % chunk, size - kd, size - vd
+    if dt or dk:
+        r, k = (F.pad(x, (0, dk, 0, 0, 0, dt)) for x in (r, k))
+        w = F.pad(w, (0, dk, 0, 0, 0, dt), value=1.0)
+    if dt or dv:
+        v = F.pad(v, (0, dv, 0, 0, 0, dt))
+    if dk:
+        u = F.pad(u, (0, dk))
+    return r, k, v, w, u
 
 
 def wkv6_kernel(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -1,16 +1,18 @@
-"""bf16 attention at head dim 80 (zamba2-2.7b's), held to the reference.
+"""Attention at head dim 80 (zamba2-2.7b's), held to the reference.
 
 On the card ``ops.mha`` runs bf16 at head dim 80 on the d 128 instantiation
-of the tensor-core kernel, whose columns past d load as zeros and add
-nothing.  Here, on the CPU, the wrapper's plain version and the plain
-emulation of that kernel's numerics (``flash_attention_sm90_plain``, with
-the d 128 instantiation's 128-key tiles) are held to the reference's
+of the tensor-core kernel and f32 on the d 128 instantiation of the
+CUDA-core one; both load the columns past d as zeros, which add nothing.
+Here, on the CPU, the wrapper's plain version and the plain emulation of
+the tensor-core kernel's numerics (``flash_attention_sm90_plain``, with the
+d 128 instantiation's 128-key tiles) are held to the reference's
 ``flash_attention`` in interpret mode on the same seeded inputs.
 
-Tolerances: 1.6e-2 absolute and relative against the reference, as every
-bf16 attention test of the port (both sides accumulate in float32 and
-round the output once to bfloat16, one ulp being 2**-7 of the value); the
-emulation, which also rounds the probabilities to bfloat16, within rtol
+Tolerances: 2e-5 absolute and relative in f32 (the online and the dense
+softmax sum in other orders); 1.6e-2 absolute and relative against the
+reference, as every bf16 attention test of the port (both sides
+accumulate in float32 and round the output once to bfloat16, one ulp
+being 2**-7 of the value); the emulation, which also rounds the probabilities to bfloat16, within rtol
 2**-7 and atol 2**-8 max|v| of the float32 plain version, the tolerance the
 card holds the kernel to (``chip_smoke.py`` ``ATTN_TOL``).
 """
@@ -90,19 +92,28 @@ def test_sm90_emulation_at_head_dim_80_matches_pallas(causal):
 
 def test_head_dim_80_runs_the_tensor_cores_on_the_d128_instantiation():
     """bf16 at d 80 takes the tensor-core kernel, whose switch runs it on
-    ``launch<128>`` (128-key tiles); float32 at d 80 has no CUDA-core
-    instantiation, so the wrapper refuses it before any kernel."""
-    assert fa.kernel_for(torch.bfloat16, 80) == "sm90"
-    assert 80 in fa.SM90_HEAD_DIMS and 80 not in fa.CUDA_CORE_HEAD_DIMS
-    assert fa.SM90_TILES[80] == 128
+    ``launch<128>`` (128-key tiles); float32 at d 80 takes the CUDA-core
+    kernel's d 128 instantiation, and ``ops.mha`` computes it: within the
+    float32 tolerance (2e-5) of the reference's ``flash_attention``."""
+    assert fa.kernel_for(torch.bfloat16) == "sm90"
+    assert fa.instantiation(torch.bfloat16, 80) == 128
+    assert fa.sm90_tile(80) == 128
     src = (fa.__file__.rsplit("/", 1)[0] + "/csrc/flash_attention_sm90.cu")
-    assert re.search(r"case 80: return launch<128>", open(src).read())
+    assert re.search(r"if \(ld <= 128\)\s+return launch<128>",
+                     open(src).read())
+    assert fa.row_width(torch.bfloat16, 80) == 80
     cuda_core = open(src.replace("_sm90", "")).read()
-    assert sorted(int(d) for d in re.findall(r"case (\d+): return launch<",
-                                             cuda_core)) == \
-        sorted(fa.CUDA_CORE_HEAD_DIMS)
-    q, kv = torch.zeros(1, 64, 2, 80), torch.zeros(1, 64, 1, 80)
+    assert re.search(r"if \(ld <= 128\)\s+return launch<128>", cuda_core)
+    assert fa.kernel_for(torch.float32) == "cuda_core"
+    assert fa.instantiation(torch.float32, 80) == 128
+    assert fa.row_width(torch.float32, 80) == 80
+    rng = np.random.default_rng(81)
+    arrays = [rng.standard_normal((1, 64, h, 80), dtype=np.float32)
+              for h in (2, 1, 1)]
     ops.reset_launches()
-    with pytest.raises(ValueError, match="head dim 80"):
-        ops.mha(q, kv, kv)
-    assert ops.mha.launches == 0
+    got = ops.mha(*map(torch.from_numpy, arrays))
+    assert ops.mha.launches == 1 and got.dtype == torch.float32
+    assert tuple(got.shape) == (1, 64, 2, 80)
+    np.testing.assert_allclose(
+        got.numpy(), _reference(*map(jnp.asarray, arrays), True),
+        rtol=2e-5, atol=2e-5)

@@ -45,6 +45,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.pchase_probe import pchase_reference
 
 ATTN_TOL = {np.float32: 2e-5, "bfloat16": 1.6e-2}
+HEAD_DIMS = range(1, fa.MAX_HEAD_DIM + 1)     # every head dim ops.mha takes
 
 
 def _attn_inputs(b, hq, hkv, sq, sk, d, dtype, seed):
@@ -111,7 +112,9 @@ def test_mha_pads_a_ragged_causal_prompt_exactly(sq, sk, dtype):
     (torch.float32, 128, "cuda_core"), (torch.float32, 256, "cuda_core")])
 def test_kernel_for_picks_tensor_cores_for_bf16_at_every_head_dim(dtype, d,
                                                                   want):
-    assert fa.kernel_for(dtype, d) == want
+    assert fa.kernel_for(dtype) == want
+    assert fa.instantiation(dtype, d) in fa.INSTANTIATIONS[want]
+    assert fa.instantiation(dtype, d) >= d
     assert fa.SOURCES[want].startswith("csrc/")
 
 
@@ -119,40 +122,51 @@ def _csrc(name: str) -> str:
     return (pathlib.Path(fa.__file__).parent / "csrc" / name).read_text()
 
 
+def _switch(name: str) -> dict:
+    """Row-width threshold -> the ``launch<D>`` the entry point's switch runs
+    for row widths up to it."""
+    return {int(w): int(inst) for w, inst in re.findall(
+        r"if \(ld <= (\d+)\)\s+return launch<(\d+)>", _csrc(name))}
+
+
 def _sm90_instantiations() -> dict:
-    """Head dim -> the ``launch<D>`` its case of the entry point's switch
-    runs."""
-    src = _csrc("flash_attention_sm90.cu")
-    return {int(d): int(inst) for d, inst in
-            re.findall(r"case (\d+): return launch<(\d+)>", src)}
+    """Head dim -> the ``launch<D>`` that the tensor-core entry point's
+    switch runs for its row width."""
+    switch = _switch("flash_attention_sm90.cu")
+    return {d: switch[min(w for w in switch
+                          if w >= fa.row_width(torch.bfloat16, d))]
+            for d in HEAD_DIMS}
 
 
 def test_sm90_head_dims_are_the_ones_its_source_instantiates():
     """The dispatch never routes a head dim to the tensor-core entry point
     that its switch would refuse; each head dim runs an instantiation at
-    least as wide (16 and 32 on the d 64 one, zeros past column d), and both
-    tiles agree with ``BLOCK``."""
+    least as wide, the one ``instantiation`` names (16 and 32 on the d 64
+    one, zeros past column d), and both tiles agree with ``BLOCK``."""
     src = _csrc("flash_attention_sm90.cu")
     inst = _sm90_instantiations()
-    assert sorted(inst) == sorted(fa.SM90_HEAD_DIMS)
+    assert sorted(set(_switch("flash_attention_sm90.cu").values())) == \
+        list(fa.INSTANTIATIONS["sm90"])
+    assert sorted(inst) == list(HEAD_DIMS)
+    assert all(inst[d] == fa.instantiation(torch.bfloat16, d) >= d
+               for d in HEAD_DIMS)
     assert {d: inst[d] for d in (16, 32)} == {16: 64, 32: 64}
     assert all(inst[d] == d for d in (64, 128, 256))
     assert "sq % 64 != 0 || sk % 64 != 0" in src and fa.BLOCK == 64
-    assert set(fa.SM90_HEAD_DIMS) <= set(fa.HEAD_DIMS)
 
 
 def test_sm90_tiles_are_the_ones_its_layout_gives_each_head_dim():
     """The plain emulation rescales where the kernel does: every
-    ``SM90_TILES[d]`` keys, which is ``Layout<D>::kBN`` in the source for
+    ``sm90_tile(d)`` keys, which is ``Layout<D>::kBN`` in the source for
     the instantiation D that head dim d runs on."""
     src = _csrc("flash_attention_sm90.cu")
     (above, big, small), = re.findall(
         r"static constexpr int kBN = D > (\d+) \? (\d+) : (\d+);", src)
     inst = _sm90_instantiations()
-    assert set(fa.SM90_TILES) == set(fa.SM90_HEAD_DIMS)
-    for d, tile in fa.SM90_TILES.items():
-        assert tile == (int(big) if inst[d] > int(above) else int(small)), d
-    assert fa.SM90_TILES[256] == 64
+    for d in HEAD_DIMS:
+        assert fa.sm90_tile(d) == (int(big) if inst[d] > int(above)
+                                   else int(small)), d
+    assert fa.sm90_tile(256) == 64
 
 
 @pytest.mark.parametrize("b,hq,hkv,s,d,causal", [
@@ -256,7 +270,7 @@ def test_sm90_plain_at_the_narrow_head_dims_matches_the_plain_version(d,
                                                                       causal):
     """At head dims 16 and 32 the tensor-core kernel runs its d 64
     instantiation, the columns past d zero, so its numerics are the emulation
-    with ``SM90_TILES[d]`` = 128-key tiles and 1/sqrt(d) scores: within rtol
+    with ``sm90_tile(d)`` = 128-key tiles and 1/sqrt(d) scores: within rtol
     2**-7, atol 2**-8 max|v| of the float32 plain version (the tolerance
     ``chip_smoke.py`` holds the kernel to), at the serving heads' grouping
     and length."""
@@ -290,19 +304,23 @@ def test_attention_kernel_counts_rise_only_where_a_kernel_launches():
 
 
 def test_tensor_core_counts_by_head_dim_rise_only_where_it_launches():
-    """The tensor-core kernel's count by head dim has one key for each head
-    dim it takes; ``ops.mha`` on the CPU moves none, ``reset_launches``
-    zeroes them."""
+    """Each kernel's count by head dim (``BY_HEAD_DIM``) holds only the head
+    dims it launched at; ``ops.mha`` on the CPU moves none,
+    ``reset_launches`` clears them."""
+    zeros = {}
     ops.reset_launches()
-    assert fa.SM90_LAUNCHES == {d: 0 for d in fa.SM90_HEAD_DIMS}
-    for d in fa.SM90_HEAD_DIMS:
-        _, (q, k, v) = _attn_inputs(1, 2, 1, 64, 64, d, "bfloat16", seed=2)
-        ops.mha(q, k, v)
-    assert ops.mha.launches == len(fa.SM90_HEAD_DIMS)
-    assert fa.SM90_LAUNCHES == {d: 0 for d in fa.SM90_HEAD_DIMS}
-    fa.SM90_LAUNCHES.update({128: 80, 256: 2})
+    assert fa.BY_HEAD_DIM == {"sm90": zeros, "cuda_core": zeros}
+    dims = (1, 16, 24, 32, 64, 80, 100, 128, 200, 256)
+    for d in dims:
+        for dtype in ("bfloat16", np.float32):
+            _, (q, k, v) = _attn_inputs(1, 2, 1, 64, 64, d, dtype, seed=2)
+            ops.mha(q, k, v)
+    assert ops.mha.launches == 2 * len(dims)
+    assert fa.BY_HEAD_DIM == {"sm90": zeros, "cuda_core": zeros}
+    fa.BY_HEAD_DIM["sm90"].update({128: 80, 256: 2})
+    fa.BY_HEAD_DIM["cuda_core"].update({16: 2})
     ops.reset_launches()
-    assert fa.SM90_LAUNCHES == {d: 0 for d in fa.SM90_HEAD_DIMS}
+    assert fa.BY_HEAD_DIM == {"sm90": zeros, "cuda_core": zeros}
 
 
 def _wkv_inputs(b, t, h, kd, vd, seed):
@@ -386,8 +404,11 @@ def test_llm_wrappers_count_and_reset():
 def _bad_calls():
     q = torch.zeros(1, 64, 4, 32)
     kv = torch.zeros(1, 64, 2, 32)
+    wide = (torch.zeros(1, 64, 4, 264), torch.zeros(1, 64, 2, 264),
+            torch.zeros(1, 64, 2, 264))
     wkv = [torch.zeros(1, 32, 2, 8) for _ in range(4)]
     u = torch.zeros(2, 8)
+    broad = [torch.zeros(1, 32, 2, 136) for _ in range(4)]
     perm = torch.zeros(8, dtype=torch.int32)
     return {
         "ragged-full": lambda: ops.mha(q[:, :50], kv[:, :50], kv[:, :50],
@@ -395,16 +416,15 @@ def _bad_calls():
         "ragged-longer-q": lambda: ops.mha(q, kv[:, :50], kv[:, :50]),
         "dtype-mix": lambda: ops.mha(q, kv.double(), kv),
         "float16": lambda: ops.mha(q.half(), kv.half(), kv.half()),
-        "head-dim": lambda: ops.mha(q[..., :24], kv[..., :24],
-                                    kv[..., :24]),
-        "head-dim-bf16": lambda: ops.mha(*(t[..., :24].bfloat16()
-                                           for t in (q, kv, kv))),
+        "head-dim": lambda: ops.mha(*wide),
+        "head-dim-bf16": lambda: ops.mha(*(t.bfloat16() for t in wide)),
         "groups": lambda: ops.mha(q[:, :, :3], kv, kv),
         "wkv-shape": lambda: ops.wkv6(*wkv[:3], wkv[3][:, :16], u),
         "wkv-dtype": lambda: ops.wkv6(wkv[0].double(), *wkv[1:], u),
         "wkv-u": lambda: ops.wkv6(*wkv, u[:1]),
         "wkv-noncontig": lambda: ops.wkv6(wkv[0].transpose(1, 2), *wkv[1:],
                                           u),
+        "wkv-head-size": lambda: ops.wkv6(*broad, torch.zeros(2, 136)),
         "pchase-iters": lambda: ops.pchase(perm, iters=-1),
         "pchase-dtype": lambda: ops.pchase(perm.long(), iters=1),
     }
