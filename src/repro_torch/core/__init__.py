@@ -5,8 +5,12 @@ from .topology import (Attribute, ComputeElement, Link, MemoryElement,
                        Topology, topology_equivalent)
 from .simulate import (SIM_DEVICES, SimDevice, SimLevel, device_from_dict,
                        make_h100_like, make_mi210_like, make_v5e_like)
-from .discover import (DiscoveryRequest, DiscoveryTimings, discover,
-                       discover_cuda, discover_sim)
+from .discover import (DiscoveryRequest, DiscoveryTimings,
+                       default_sweep_budget, discover, discover_cuda,
+                       discover_sim, discover_sim_legacy)
+from .engine.fusion import FusionDispatcher, run_fused
+from .engine.planner import SweepBudget
+from .engine.store import GcPolicy, TopologyStore, request_key
 from .errors import DegradedResult, Resilience, TransientRunnerError
 
 __all__ = [
@@ -15,6 +19,8 @@ __all__ = [
     "SIM_DEVICES", "SimDevice", "SimLevel", "device_from_dict",
     "make_h100_like", "make_mi210_like", "make_v5e_like",
     "DiscoveryRequest", "DiscoveryTimings", "discover", "discover_cuda",
-    "discover_sim",
+    "discover_sim", "discover_sim_legacy", "default_sweep_budget",
+    "SweepBudget", "GcPolicy", "TopologyStore", "request_key",
+    "FusionDispatcher", "run_fused",
     "DegradedResult", "Resilience", "TransientRunnerError",
 ]

@@ -37,6 +37,8 @@ class EngineResult:
     wall_seconds: float = 0.0
     degraded: list = field(default_factory=list)        # DegradedResult, in order
     retries: int = 0                                    # transient retries spent
+    # fused runs: rounds, fused dispatches and the rows they carried
+    fusion: dict | None = None
 
 
 def run_probes(runner, n_samples: int = 33, elements: list[str] | None = None,
@@ -171,4 +173,8 @@ def run_probes(runner, n_samples: int = 33, elements: list[str] | None = None,
         wall_seconds=sched.wall_seconds,
         degraded=degraded,
         retries=sched.retries,
+        fusion=None if dispatcher is None else {
+            "rounds": dispatcher.rounds,
+            "fused_calls": dispatcher.fused_calls,
+            "fused_rows": dispatcher.fused_rows},
     )

@@ -17,12 +17,12 @@ import torch
 import torch.nn.functional as F
 
 from .flash_attention import (BLOCK, BY_HEAD_DIM, LAUNCHES,
-                              flash_attention_kernel, flash_attention_plain,
-                              instantiation)
+                              flash_attention_kernel, flash_attention_plain)
 from .pchase_probe import (eviction_batch_plain, eviction_kernel_batch,
                            pchase_batch_plain, pchase_kernel,
                            pchase_kernel_batch, pchase_plain)
-from .rwkv6_scan import CHUNK, head_size, pad_wkv, wkv6_kernel, wkv6_plain
+from .rwkv6_scan import (CHUNK, HEAD_SIZES, head_size, pad_wkv, wkv6_kernel,
+                         wkv6_plain)
 from .stream_probe import (stream_read_kernel, stream_read_plain,
                            stream_write_kernel, stream_write_plain)
 
@@ -139,8 +139,9 @@ def _pad_seq(x: torch.Tensor, length: int, value: float = 0.0):
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         causal: bool = True) -> torch.Tensor:
     """Flash attention over model-layout activations: q (B, Sq, Hq, d),
-    k and v (B, Sk, Hkv, d), float32 or bfloat16, any head dim d from 1 to
-    ``flash_attention.MAX_HEAD_DIM`` -> (B, Sq, Hq, d) in q's dtype.
+    k and v (B, Sk, Hkv, d), float32 or bfloat16, any head dim d >= 1 ->
+    (B, Sq, Hq, d) in q's dtype; ``flash_attention.kernel_for`` names the
+    kernel of each dtype and d.
 
     The kernel takes sequence lengths in multiples of ``BLOCK``.  A ragged
     causal call with Sq <= Sk is padded at the tail and the padded rows
@@ -160,7 +161,8 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if hkv == 0 or hq % hkv:
         raise ValueError(f"{hq} query heads are not a multiple of {hkv} kv "
                          f"heads")
-    instantiation(q.dtype, d)               # raises past MAX_HEAD_DIM
+    if d < 1:
+        raise ValueError(f"head dim {d}: expected at least 1")
     ragged = sq % BLOCK or sk % BLOCK
     if ragged and not (causal and sq <= sk):
         raise ValueError(f"lengths {sq}, {sk} are not multiples of {BLOCK}; "
@@ -178,8 +180,15 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
          u: torch.Tensor, *,
          chunk: int = 32) -> tuple[torch.Tensor, torch.Tensor]:
     """Chunked WKV6 from a zero state over model-layout float32 activations:
-    r, k, w (B, T, H, K), v (B, T, H, V), u (H, K), K and V up to 128 ->
+    r, k, w (B, T, H, K), v (B, T, H, V), u (H, K), any K and V ->
     (y (B, T, H, V), state (B, H, K, V)), both float32.
+
+    Past K or V 128 (the kernels' largest head size) the call is split
+    above the route: each of the state's K rows evolves alone and each V
+    column of y and of the state is independent, while y sums over K.  So
+    K and V are cut into slices of at most 128, each (K slice, V slice)
+    runs as its own call below, y is summed over the K slices and the state
+    concatenated.  This counts as one call.
 
     The kernels take K = V in ``HEAD_SIZES`` and T in whole chunks of their
     own ``CHUNK``, which they run whatever ``chunk`` says: the chunked form
@@ -204,8 +213,30 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
                          f"u {tuple(u.shape)} do not match")
     if chunk <= 0:
         raise ValueError(f"chunk must be positive, got {chunk}")
-    size = head_size(kd, vd)                # raises past 128, as the card
-    fn = _route(dev, wkv6_kernel, wkv6_plain)
+    widest = HEAD_SIZES[-1]
+    if kd <= widest and vd <= widest:
+        return _wkv6_slice(r, k, v, w, u, chunk)
+    y, states = None, []
+    for k0 in range(0, kd, widest):
+        ks = slice(k0, k0 + widest)
+        rk, kk, wk = (x[..., ks].contiguous() for x in (r, k, w))
+        uk = u[:, ks].contiguous()
+        parts = [_wkv6_slice(rk, kk, v[..., v0:v0 + widest].contiguous(), wk,
+                             uk, chunk) for v0 in range(0, vd, widest)]
+        yk = torch.cat([part[0] for part in parts], dim=-1)
+        y = yk if y is None else y + yk
+        states.append(torch.cat([part[1] for part in parts], dim=-1))
+    return y, torch.cat(states, dim=2)
+
+
+def _wkv6_slice(r, k, v, w, u,
+                chunk: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``wkv6`` at K and V up to 128 on validated inputs: the kernels or,
+    on the CPU, the plain version."""
+    b, t, h, kd = r.shape
+    vd = v.shape[-1]
+    size = head_size(kd, vd)
+    fn = _route(r.device, wkv6_kernel, wkv6_plain)
     if fn is wkv6_plain:
         tp = -(-t // chunk) * chunk
         y, state = fn(_pad_seq(r, tp), _pad_seq(k, tp), _pad_seq(v, tp),

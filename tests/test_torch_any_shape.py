@@ -103,8 +103,9 @@ def test_every_head_dim_routes_to_an_instantiation_its_switch_has(dtype):
     """Each d in 1..256 runs ``instantiation(dtype, d)`` >= d, which is the
     ``launch<D>`` that the source's switch picks for the row width the
     wrapper hands it (a multiple of ``ROW_ELEMS``, as the entry point's own
-    check asks); d 257 raises, in the rule and in ``ops.mha``."""
-    route = fa.kernel_for(dtype)
+    check asks); d 257 is past the rule, and ``ops.mha`` takes it on the
+    wide kernel."""
+    route = fa.kernel_for(dtype, fa.MAX_HEAD_DIM)
     source = fa.SOURCES[route]
     text = (pathlib.Path(fa.__file__).parent / source).read_text()
     unit = fa.ROW_ELEMS[route]
@@ -120,12 +121,12 @@ def test_every_head_dim_routes_to_an_instantiation_its_switch_has(dtype):
         assert picked == fa.instantiation(dtype, d) >= d, d
     with pytest.raises(ValueError, match="at most 256"):
         fa.instantiation(dtype, fa.MAX_HEAD_DIM + 1)
+    assert fa.kernel_for(dtype, fa.MAX_HEAD_DIM + 1) == "wide"
     q = torch.zeros(1, 64, 2, 257, dtype=dtype)
     kv = torch.zeros(1, 64, 1, 257, dtype=dtype)
     ops.reset_launches()
-    with pytest.raises(ValueError, match="at most 256"):
-        ops.mha(q, kv, kv)
-    assert ops.mha.launches == 0
+    assert tuple(ops.mha(q, kv, kv).shape) == (1, 64, 2, 257)
+    assert ops.mha.launches == 1
 
 
 def _wkv_inputs(b, t, h, kd, vd, seed):

@@ -4,8 +4,9 @@
   devices, so its topologies must equal the reference's bit for bit
   (memory attributes and compute elements; the notes carry wall times and
   are excluded).
-* ``discover_cuda(device="cpu")`` runs the kernels' plain versions under
-  real timing.  Its discrete attributes are held to the model's ground
+* ``discover_cuda(device="cpu", budget=None, fuse=False)`` runs the
+  kernels' plain versions under real timing, with dense, unfused sweeps
+  (the planned and fused default is ``test_torch_planned_discovery.py``'s).  Its discrete attributes are held to the model's ground
   truth, which equals the reference's ``make_pallas_model()`` ground truth
   exactly; the run is measured, so a mismatch gets one retry, as the
   reference's own Pallas discovery test does.  (A second measured run of
@@ -79,7 +80,8 @@ def discovery():
             ops.reset_launches()
             runner = CudaRunner(device="cpu", base_steps=BASE_STEPS)
             topo, timings = discover_cuda(runner=runner,
-                                          n_samples=N_SAMPLES)
+                                          n_samples=N_SAMPLES, budget=None,
+                                          fuse=False)
             launches = [fn.launches for fn in ops.WRAPPERS]
             if attempt == 0 and not _matches_ground_truth(topo, gt):
                 continue
@@ -155,10 +157,6 @@ def test_bandwidth_values_are_finite(discovery):
 
 
 UNPORTED = [
-    ({"budget": object()}, "engine/planner.py"),
-    ({"fuse": True}, "engine/fusion.py"),
-    ({"store": object()}, "engine/store.py"),
-    ({"survey": True}, "engine/store.py"),
     ({"resilience": object()}, "engine/store.py"),
     ({"parallel": object()}, "engine/parallel.py"),
 ]

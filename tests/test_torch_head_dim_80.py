@@ -95,7 +95,7 @@ def test_head_dim_80_runs_the_tensor_cores_on_the_d128_instantiation():
     ``launch<128>`` (128-key tiles); float32 at d 80 takes the CUDA-core
     kernel's d 128 instantiation, and ``ops.mha`` computes it: within the
     float32 tolerance (2e-5) of the reference's ``flash_attention``."""
-    assert fa.kernel_for(torch.bfloat16) == "sm90"
+    assert fa.kernel_for(torch.bfloat16, 80) == "sm90"
     assert fa.instantiation(torch.bfloat16, 80) == 128
     assert fa.sm90_tile(80) == 128
     src = (fa.__file__.rsplit("/", 1)[0] + "/csrc/flash_attention_sm90.cu")
@@ -104,7 +104,7 @@ def test_head_dim_80_runs_the_tensor_cores_on_the_d128_instantiation():
     assert fa.row_width(torch.bfloat16, 80) == 80
     cuda_core = open(src.replace("_sm90", "")).read()
     assert re.search(r"if \(ld <= 128\)\s+return launch<128>", cuda_core)
-    assert fa.kernel_for(torch.float32) == "cuda_core"
+    assert fa.kernel_for(torch.float32, 80) == "cuda_core"
     assert fa.instantiation(torch.float32, 80) == 128
     assert fa.row_width(torch.float32, 80) == 80
     rng = np.random.default_rng(81)

@@ -112,7 +112,7 @@ def test_mha_pads_a_ragged_causal_prompt_exactly(sq, sk, dtype):
     (torch.float32, 128, "cuda_core"), (torch.float32, 256, "cuda_core")])
 def test_kernel_for_picks_tensor_cores_for_bf16_at_every_head_dim(dtype, d,
                                                                   want):
-    assert fa.kernel_for(dtype) == want
+    assert fa.kernel_for(dtype, d) == want
     assert fa.instantiation(dtype, d) in fa.INSTANTIATIONS[want]
     assert fa.instantiation(dtype, d) >= d
     assert fa.SOURCES[want].startswith("csrc/")
@@ -290,17 +290,19 @@ def test_sm90_plain_at_the_narrow_head_dims_matches_the_plain_version(d,
 
 def test_attention_kernel_counts_rise_only_where_a_kernel_launches():
     """On the CPU ``ops.mha`` counts its calls but launches no kernel, so
-    neither kernel's own count moves; ``reset_launches`` zeroes them."""
+    no kernel's own count moves; ``reset_launches`` zeroes them."""
+    none = {"sm90": 0, "cuda_core": 0, "wide": 0}
     ops.reset_launches()
-    assert fa.LAUNCHES == {"sm90": 0, "cuda_core": 0}
+    assert fa.LAUNCHES == none
     for dtype in ("bfloat16", np.float32):
-        _, (q, k, v) = _attn_inputs(1, 2, 1, 64, 64, 128, dtype, seed=1)
-        ops.mha(q, k, v)
-    assert ops.mha.launches == 2
-    assert fa.LAUNCHES == {"sm90": 0, "cuda_core": 0}
-    fa.LAUNCHES.update(sm90=3, cuda_core=1)
+        for d in (128, 320):
+            _, (q, k, v) = _attn_inputs(1, 2, 1, 64, 64, d, dtype, seed=1)
+            ops.mha(q, k, v)
+    assert ops.mha.launches == 4
+    assert fa.LAUNCHES == none
+    fa.LAUNCHES.update(sm90=3, cuda_core=1, wide=2)
     ops.reset_launches()
-    assert fa.LAUNCHES == {"sm90": 0, "cuda_core": 0}
+    assert fa.LAUNCHES == none
 
 
 def test_tensor_core_counts_by_head_dim_rise_only_where_it_launches():
@@ -308,19 +310,21 @@ def test_tensor_core_counts_by_head_dim_rise_only_where_it_launches():
     dims it launched at; ``ops.mha`` on the CPU moves none,
     ``reset_launches`` clears them."""
     zeros = {}
+    none = {"sm90": zeros, "cuda_core": zeros, "wide": zeros}
     ops.reset_launches()
-    assert fa.BY_HEAD_DIM == {"sm90": zeros, "cuda_core": zeros}
-    dims = (1, 16, 24, 32, 64, 80, 100, 128, 200, 256)
+    assert fa.BY_HEAD_DIM == none
+    dims = (1, 16, 24, 32, 64, 80, 100, 128, 200, 256, 264)
     for d in dims:
         for dtype in ("bfloat16", np.float32):
             _, (q, k, v) = _attn_inputs(1, 2, 1, 64, 64, d, dtype, seed=2)
             ops.mha(q, k, v)
     assert ops.mha.launches == 2 * len(dims)
-    assert fa.BY_HEAD_DIM == {"sm90": zeros, "cuda_core": zeros}
+    assert fa.BY_HEAD_DIM == none
     fa.BY_HEAD_DIM["sm90"].update({128: 80, 256: 2})
     fa.BY_HEAD_DIM["cuda_core"].update({16: 2})
+    fa.BY_HEAD_DIM["wide"].update({320: 4})
     ops.reset_launches()
-    assert fa.BY_HEAD_DIM == {"sm90": zeros, "cuda_core": zeros}
+    assert fa.BY_HEAD_DIM == none
 
 
 def _wkv_inputs(b, t, h, kd, vd, seed):
@@ -404,8 +408,8 @@ def test_llm_wrappers_count_and_reset():
 def _bad_calls():
     q = torch.zeros(1, 64, 4, 32)
     kv = torch.zeros(1, 64, 2, 32)
-    wide = (torch.zeros(1, 64, 4, 264), torch.zeros(1, 64, 2, 264),
-            torch.zeros(1, 64, 2, 264))
+    wide = (torch.zeros(1, 64, 4, 264), torch.zeros(1, 64, 2, 256),
+            torch.zeros(1, 64, 2, 256))             # q's d is not k's
     wkv = [torch.zeros(1, 32, 2, 8) for _ in range(4)]
     u = torch.zeros(2, 8)
     broad = [torch.zeros(1, 32, 2, 136) for _ in range(4)]
@@ -424,7 +428,7 @@ def _bad_calls():
         "wkv-u": lambda: ops.wkv6(*wkv, u[:1]),
         "wkv-noncontig": lambda: ops.wkv6(wkv[0].transpose(1, 2), *wkv[1:],
                                           u),
-        "wkv-head-size": lambda: ops.wkv6(*broad, torch.zeros(2, 136)),
+        "wkv-head-size": lambda: ops.wkv6(*broad, torch.zeros(2, 128)),
         "pchase-iters": lambda: ops.pchase(perm, iters=-1),
         "pchase-dtype": lambda: ops.pchase(perm.long(), iters=1),
     }
