@@ -8,19 +8,19 @@ Phases, each of which stops the run on failure (no fallback to the CPU or
 to a plain version):
 
 1. build   — ``nvcc`` builds ``src/repro_torch/kernels/csrc/*.cu`` (the
-             chase, stream, the three flash-attention and the WKV6
+             chase, stream, the two flash-attention and the WKV6
              sources, one compiler each, all at once) into
              ``build/kernels/``; prints
              each source's compile time and ptxas's registers and spills,
              and checks that every instantiation of both attention
-             kernels spills nothing, that the SASS of each tensor-core one
-             holds wgmma (HGMMA) and TMA loads and that of each CUDA-core
-             one 128-bit shared loads (LDS.128) and asynchronous copies
-             (LDGSTS), with the FFMAs per shared load of its innermost
-             loops printed, that the wide attention kernel (head dims past
-             256) spills nothing in either dtype, and that every
-             instantiation of the two WKV6 kernels spills nothing (their
-             registers printed);
+             sources (up to head dim 256 and past it) spills nothing, that
+             the SASS of each tensor-core one holds wgmma (HGMMA) and TMA
+             loads and that of each CUDA-core one 128-bit shared loads
+             (LDS.128) and asynchronous copies (LDGSTS), with the FFMAs per
+             shared load of its innermost loops printed (at least 4 in
+             each; past 256 at least 8 in each loop but the Q K^T one), and
+             that every instantiation of the two WKV6 kernels spills
+             nothing (their registers printed);
 2. kernels — first the floor: ``chase_floor`` (one thread, dependent
              loads with nothing else on the chain) at footprints from 4 KiB
              to 256 MiB, with ``nvidia-smi``'s SM clock and power beside
@@ -63,11 +63,13 @@ to a plain version):
              truth (one measured retry), the same request served from the
              store with no launch, ``refresh: true`` measuring again, and
              the server and its workers stopped;
-4. llm kernels — ``ops.mha`` (the tensor-core kernel for bf16 at head
-             dims 16, 32, 64, 80, 96, 100, 128 and 256, the CUDA-core one
+4. llm kernels — ``ops.mha`` (the tensor-core kernels for bf16 at head
+             dims 16, 32, 64, 80, 96, 100, 128 and 256, the CUDA-core ones
              for f32 at 3, 16, 64, 78, 80, 128 and 256, causal and full,
-             and at the f32 smoke run's own prefill; the wide kernel at
-             head dim 320 in bf16 and f32, causal and full), ``ops.wkv6``
+             and at the f32 smoke run's own prefill; past 256 both sources'
+             wide kernels at head dims 300 (a padded row in bf16), 320,
+             384, 512 and 640 (two column slices), causal, and 320 and 512
+             full), ``ops.wkv6``
              (its two kernels, at T 512, T 500, the model's strong decays,
              K 64 with V 32, the reference's chunk 64, and split into
              slices of at most 128 at K = V = 192 and K 160 with V 96) and
@@ -675,50 +677,48 @@ def phase_build() -> None:
     for name, props in funcs.items():
         print(f"[build] {name}: {props}")
     # each attention kernel's instantiations, as their mangled names spell
-    # them: no spills; the tensor-core one holds wgmma and TMA loads, the
-    # CUDA-core one vector shared loads and asynchronous copies
+    # them (the source's first kernel up to head dim 256, its wide one
+    # past it): no spills; the tensor-core ones hold wgmma and TMA loads,
+    # the CUDA-core ones vector shared loads and asynchronous copies
     for d in INSTANTIATIONS["cuda_core"]:
-        kernel = f"flash_fwd_kernelILi{d}E"
-        mine = [props for name, props in funcs.items() if kernel in name]
+        wide = d > 256
+        name = "flash_fwd_wide_kernel" if wide else "flash_fwd_kernel"
+        kernel = f"{name}ILi{d}E"
+        mine = [props for fn, props in funcs.items() if kernel in fn]
         check(len(mine) == 1 and mine[0].get("spill_bytes") == 0,
-              f"flash_fwd_kernel<{d}>: ptxas reports {mine}, not one "
-              f"function without spills")
+              f"{name}<{d}>: ptxas reports {mine}, not one function "
+              f"without spills")
         sass = _sass_counts(info.path, kernel)
         loops = inner_loops(info.path, kernel)
-        print(f"[build] flash_fwd_kernel<{d}>: {mine[0]['registers']} "
+        print(f"[build] {name}<{d}>: {mine[0]['registers']} "
               f"registers, {mine[0]['spill_bytes']} spill bytes; SASS {sass};"
               f" innermost loops with FFMA {loops}")
         check(sass["functions"] == 1 and sass["LDS.128"] > 0
               and sass["LDGSTS"] > 0,
-              f"flash_fwd_kernel<{d}> lacks LDS.128 or LDGSTS: {sass}")
+              f"{name}<{d}> lacks LDS.128 or LDGSTS: {sass}")
         # the design feeds at least 4 FFMA from each shared load in both
-        # products (an SM issues 4 warp-FFMAs a clock)
-        check(loops and all(loop["FFMA_per_LDS"] >= 4 for loop in loops),
-              f"flash_fwd_kernel<{d}>: innermost loops {loops} feed fewer "
-              f"than 4 FFMA a shared load")
+        # products (an SM issues 4 warp-FFMAs a clock); past 256 the P V
+        # loops (every loop but the Q K^T one, which has the fewest) 8
+        ratios = sorted(loop["FFMA_per_LDS"] for loop in loops)
+        check(ratios and ratios[0] >= 4
+              and (not wide or (len(ratios) > 1 and ratios[1] >= 8)),
+              f"{name}<{d}>: innermost loops {loops} feed fewer than 4 "
+              f"FFMA a shared load" + (", or P V fewer than 8" if wide
+                                       else ""))
     for d in INSTANTIATIONS["sm90"]:
-        kernel = f"flash_fwd_sm90_kernelILi{d}E"
-        mine = [props for name, props in funcs.items() if kernel in name]
+        name = ("flash_fwd_sm90_wide_kernel" if d > 256
+                else "flash_fwd_sm90_kernel")
+        kernel = f"{name}ILi{d}E"
+        mine = [props for fn, props in funcs.items() if kernel in fn]
         check(len(mine) == 1 and mine[0].get("spill_bytes") == 0,
-              f"flash_fwd_sm90_kernel<{d}>: ptxas reports {mine}, not one "
-              f"function without spills")
+              f"{name}<{d}>: ptxas reports {mine}, not one function "
+              f"without spills")
         sass = _sass_counts(info.path, kernel)
-        print(f"[build] flash_fwd_sm90_kernel<{d}>: {mine[0]['registers']} "
+        print(f"[build] {name}<{d}>: {mine[0]['registers']} "
               f"registers, {mine[0]['spill_bytes']} spill bytes; SASS {sass}")
         check(sass["functions"] == 1 and sass["HGMMA"] > 0
               and sass["UTMALDG"] > 0,
-              f"flash_fwd_sm90_kernel<{d}> lacks wgmma or TMA loads: {sass}")
-    # the wide kernel (head dims past 256): one function a dtype, no spills
-    wide = {name: props for name, props in funcs.items()
-            if "flash_wide_kernel" in name}
-    check(len(wide) == 2
-          and all(p.get("spill_bytes") == 0 for p in wide.values()),
-          f"flash_wide_kernel: ptxas reports {wide}, not two functions "
-          f"(float, bfloat16) without spills")
-    print("[build] flash_wide_kernel<T>: registers "
-          + ", ".join(f"{'bf16' if 'bfloat16' in name else 'f32'}: "
-                      f"{p['registers']}" for name, p in sorted(wide.items()))
-          + "; 0 spill bytes each")
+              f"{name}<{d}> lacks wgmma or TMA loads: {sass}")
     for kernel in KERNELS:
         # the WKV6 pair: one instantiation a head size (K = V), no spills
         mine = {int(re.search(rf"{kernel}ILi(\d+)E", name)[1]): props
@@ -1295,14 +1295,13 @@ WKV = dict(b=4, t=512, h=40, k=64, chunk=32)
 #   zeros and add nothing.
 # * sm90 at head dims 96 and 100 the same as at 80: the d 128 instantiation,
 #   zeros past d (d 100 padded by the wrapper to a row of 104).
-# * wide (head dims past 256), bf16: the tensor-core kernel's numerics
-#   (p rounded to bf16 for P.V, 64-key tiles), so the sm90 tolerances,
-#   against the plain version and against flash_attention_sm90_plain.
-# * wide, f32: as cuda_core.
+# * past head dim 256 each source's wide kernel, the same tolerances: in
+#   bf16 the same numerics (p rounded to bf16 for P.V) on the tiles that
+#   sm90_tile gives (64 keys at the d 320 instantiation, 32 past it), which
+#   the emulation follows; in f32 the online softmax as at cuda_core; past
+#   512 each column slice computes the same scores over the whole row.
 ATTN_TOL = {("sm90", torch.bfloat16): (2 ** -7, 2 ** -8),
-            ("cuda_core", torch.float32): (2e-5, 2e-5),
-            ("wide", torch.bfloat16): (2 ** -7, 2 ** -8),
-            ("wide", torch.float32): (2e-5, 2e-5)}
+            ("cuda_core", torch.float32): (2e-5, 2e-5)}
 SM90_EMULATION_TOL = (2 ** -7, 2 ** -10)       # atol in units of max|v|
 OLD_BF16_ATOL = 2e-3
 # (dtype, sequence length, causal, head dim, query heads, kv heads): the
@@ -1320,9 +1319,13 @@ OLD_BF16_ATOL = 2e-3
 # at the serving heads and at the f32 smoke run's own prefill (6 query
 # heads on 2 kv heads, a ragged 100-token prompt), and f32 at head dims 3
 # and 78, no multiple of 4, which the wrapper pads to rows of 4 and 80
-# (the d 32 and d 128 instantiations); head dim 320, past the tiled
-# kernels' 256, on the wide kernel in bf16 and f32, causal and full.
+# (the d 32 and d 128 instantiations); past 256, in bf16 and f32, both
+# sources' wide kernels at head dim 320 causal and full, 300 (bf16's row
+# padded to 304), 384 and 512 (32-key tiles in bf16) causal, 512 full, and
+# 640 causal (two column slices of the d 320 instantiation, each reading q
+# and k in two chunks).
 SERVE_HEADS = (ATTN["hq"], ATTN["hkv"])
+WIDE_DIMS = (300, 384, 512, 640)     # past 256, beside d 320 (row 6c)
 PALIGEMMA_HEADS = (8, 1)
 SMOKE_HEADS = (6, 2)            # phase 5's qwen3-14b-smoke overrides
 ATTN_CASES = ((torch.bfloat16, 512, True, 128, *SERVE_HEADS),
@@ -1350,7 +1353,12 @@ ATTN_CASES = ((torch.bfloat16, 512, True, 128, *SERVE_HEADS),
               (torch.bfloat16, 512, True, 320, *SERVE_HEADS),
               (torch.bfloat16, 512, False, 320, *SERVE_HEADS),
               (torch.float32, 512, True, 320, *SERVE_HEADS),
-              (torch.float32, 512, False, 320, *SERVE_HEADS))
+              (torch.float32, 512, False, 320, *SERVE_HEADS),
+              *((dtype, 512, True, d, *SERVE_HEADS)
+                for d in WIDE_DIMS
+                for dtype in (torch.bfloat16, torch.float32)),
+              (torch.bfloat16, 512, False, 512, *SERVE_HEADS),
+              (torch.float32, 512, False, 512, *SERVE_HEADS))
 # The rows of the kernels line that these cases give, by (head dim, dtype)
 # at the serving heads, length and causal mask.
 ATTN_ROWS = {(128, torch.bfloat16): "mha", (128, torch.float32): "mha_f32",
@@ -1360,7 +1368,11 @@ ATTN_ROWS = {(128, torch.bfloat16): "mha", (128, torch.float32): "mha_f32",
              (256, torch.float32): "mha_f32_d256",
              (16, torch.float32): "mha_f32_d16",
              (320, torch.bfloat16): "mha_wide",
-             (320, torch.float32): "mha_wide_f32"}
+             (320, torch.float32): "mha_wide_f32",
+             **{(d, dtype): f"mha_{'f32_' if dtype == torch.float32 else ''}"
+                            f"d{d}"
+                for d in WIDE_DIMS
+                for dtype in (torch.bfloat16, torch.float32)}}
 # WKV6 in f32: 64-term dot products and 32-step chunk sums in other
 # orders; errors scale with the largest output.
 WKV_RTOL = 1e-4
@@ -1393,7 +1405,7 @@ def phase_llm_kernels(floor: dict) -> dict:
     from repro_torch.core.probes.runners import random_cycle
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import (
-        BY_HEAD_DIM, SOURCES, flash_attention_plain,
+        BY_HEAD_DIM, SOURCES, column_slices, flash_attention_plain,
         flash_attention_sm90_plain, instantiation, kernel_for, row_width)
     from repro_torch.kernels.pchase_probe import (pchase_plain,
                                                   pchase_reference)
@@ -1429,9 +1441,10 @@ def phase_llm_kernels(floor: dict) -> dict:
         err = float(diff.max())
         old_refused = float((diff > OLD_BF16_ATOL + rtol * want.float().abs())
                             .float().mean())
-        kernel = (f"{route} kernel" + ("" if route == "wide" else
-                                       f" at its d {instantiation(dtype, d)}"
-                                       f" instantiation"))
+        slices, _ = column_slices(dtype, d)
+        kernel = (f"{route} kernel at its d {instantiation(dtype, d)} "
+                  f"instantiation"
+                  + (f", {slices} column slices" if slices > 1 else ""))
         shape = (f"B={b},Hq={hq},Hkv={hkv},S={seq},d={d},"
                  f"{str(dtype).split('.')[-1]},"
                  f"{'causal' if causal else 'full'}")
@@ -1814,9 +1827,9 @@ def phase_serve() -> dict:
         # every mha call of the bf16, head-dim-128 model is a launch of the
         # tensor-core kernel at head dim 128, counted where it launches; no
         # launch at another head dim or of the CUDA-core kernel
-        want_routes = {"sm90": want["mha"], "cuda_core": 0, "wide": 0}
+        want_routes = {"sm90": want["mha"], "cuda_core": 0}
         want_by_d = {"sm90": {128: want["mha"]} if want["mha"] else {},
-                     "cuda_core": {}, "wide": {}}
+                     "cuda_core": {}}
         check(routes == want_routes and by_d == want_by_d,
               f"{arch}: attention kernel launches {routes}, by head dim "
               f"{by_d}; expected {want_routes}, {want_by_d}")
@@ -1950,17 +1963,8 @@ def main() -> int:
         "stream_read": "src/repro/kernels/stream_probe.py:36",
         "stream_write": "src/repro/kernels/stream_probe.py:53",
         "pchase": "src/repro/kernels/pchase_probe.py:53",
-        "mha": "src/repro/kernels/flash_attention.py:78",
-        "mha_f32": "src/repro/kernels/flash_attention.py:78",
-        "mha_d256": "src/repro/kernels/flash_attention.py:78",
-        "mha_d32": "src/repro/kernels/flash_attention.py:78",
-        "mha_d80": "src/repro/kernels/flash_attention.py:78",
-        "mha_d100": "src/repro/kernels/flash_attention.py:78",
-        "mha_f32_d80": "src/repro/kernels/flash_attention.py:78",
-        "mha_f32_d256": "src/repro/kernels/flash_attention.py:78",
-        "mha_f32_d16": "src/repro/kernels/flash_attention.py:78",
-        "mha_wide": "src/repro/kernels/flash_attention.py:78",
-        "mha_wide_f32": "src/repro/kernels/flash_attention.py:78",
+        **{name: "src/repro/kernels/flash_attention.py:78"
+           for name in ATTN_ROWS.values()},
         "wkv6": "src/repro/kernels/rwkv6_scan.py:74",
     }
     sources = {
@@ -1973,10 +1977,9 @@ def main() -> int:
         "pchase": ("cuda", "src/repro_torch/kernels/csrc/pchase.cu"),
         "wkv6": ("cuda", "src/repro_torch/kernels/csrc/wkv6.cu"),
     }
-    paths = {"mha": "serve qwen3-14b", "wkv6": "serve rwkv6-3b",
-             "pchase": None, "mha_d256": None, "mha_d32": None,
-             "mha_d80": None, "mha_d100": None, "mha_f32_d80": None,
-             "mha_f32_d256": None, "mha_wide": None, "mha_wide_f32": None,
+    paths = {**{name: None for name in ATTN_ROWS.values()},
+             "mha": "serve qwen3-14b", "wkv6": "serve rwkv6-3b",
+             "pchase": None,
              "mha_f32": "qwen3-14b-smoke f32 prefill on the card",
              "mha_f32_d16": "qwen3-14b-smoke f32 prefill on the card"}
     kernels = []

@@ -1,11 +1,12 @@
 // Flash attention forward on Hopper's tensor cores (bf16), for sm_90a.
 //
 // Replaces the Pallas kernel of the reference package:
-//   flash_fwd_sm90_kernel <- repro/kernels/flash_attention.py flash_attention
-//                            (pallas_call at :94, body _kernel)
-// for bfloat16 inputs at every head dim from 1 to 256; float32 runs
-// csrc/flash_attention.cu (CUDA cores).  kernels/flash_attention.py chooses
-// between them by dtype alone.
+//   flash_fwd_sm90_kernel      <- repro/kernels/flash_attention.py
+//                                 flash_attention (pallas_call at :94, body
+//                                 _kernel), head dims 1 to 256
+//   flash_fwd_sm90_wide_kernel <- the same, every head dim past 256
+// for bfloat16 inputs; float32 runs csrc/flash_attention.cu (CUDA cores).
+// kernels/flash_attention.py chooses between the two sources by dtype alone.
 //
 // What it computes: o = softmax(q k^T / sqrt(d)) v per (batch, query head),
 // query head h reading kv head h / (Hq / Hkv), with the causal mask
@@ -72,6 +73,42 @@
 //   one TMA store per box sends it out while the consumer starts its next
 //   unit (at d 256 in two halves through one buffer of two boxes).  TMA
 //   writes no row at or past Sq (the zero-filled half of a 64-row tail).
+//
+// Past head dim 256 (flash_fwd_sm90_wide_kernel, instantiations 320, 384,
+// 448 and 512, the smallest D >= ld; past 512 the slices below):
+// * Why not another instantiation of the kernel above: at d 256 it fills
+//   225 KB of shared memory, and each consumer keeps O's 128 accumulators a
+//   thread beside S's 32.  So a unit is 64 query rows, and its two
+//   consumers split O's columns in whole boxes of 64 (d 320: 192 and 128,
+//   at most 256 each, 128 accumulators a thread).  Both need all of P, and
+//   each computes S = Q K^T itself: the tensor cores do 1.5 times the
+//   products (at d 320, causal, 0.027 ms of them at 989 TFLOP/s against a
+//   byte bound of 0.038 ms), where splitting the contraction would trade
+//   the extra products for an exchange of partial scores through shared
+//   memory under a named barrier on every kv tile.  The scores are still
+//   computed once a unit, not once for each slice of the output.
+// * Shared memory: Q 64 x D and a ring of two stages of K and V tiles.
+//   64-key tiles at D 320 (Q 40 KB + 2 x (40 + 40) KB = 200 KB); 32-key
+//   tiles past it, where two 64-key stages no longer fit (D 512: Q 64 KB +
+//   2 x (32 + 32) KB).  sm90_tile in kernels/flash_attention.py says so.
+// * The epilogue writes O / l in bf16 from the registers straight to device
+//   memory (no staging buffer is left); columns at or past ld not at all.
+// * Past 512 the output is cut into n = ceil(ld / 512) slices of a
+//   multiple of 64 columns, each a unit of its own, the instantiation the
+//   slice width; each computes S again over the whole row, reading q and k
+//   in n chunks of D columns: Q's chunk is loaded again beside each K
+//   tile's chunk, one ring stage a chunk, V with the last.  So S is
+//   computed n times, not once for every 128 columns.
+// * A row that is no multiple of 8 is padded by the wrapper to one that is
+//   (a copy of q, k and v), as below 256.
+// * What holds it (tools/attention_parts.py cuts parts out of its loop): the
+//   TMA pipeline alone, consumers only waiting for each stage and giving it
+//   back, takes most of its time; a second copy of S or the P V products add
+//   little.  A unit of 64 rows reads each K and V tile for 64 rows only, and
+//   the accumulators of 128 rows would not fit the registers past d 320.
+//   Tried and dropped, no faster or slower on the H100 than the kept kernel
+//   in one call: two Q slots (the next unit's Q loaded early), three or four
+//   ring stages where they fit, and 32- or 16-key tiles at d 320.
 //
 // The C entry point builds the four tensor maps on the host on every call
 // (cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint, so the
@@ -357,6 +394,57 @@ __device__ __forceinline__ void wgmma_rs_n64(
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+}
+
+// d (64 x 32, f32) += A (64 x 16, shared) * B (16 x 32, shared), both
+// K-major; the sum starts from d when scale_d is 1 and from 0 when it is 0.
+__device__ __forceinline__ void wgmma_ss_n32(
+    float (&d)[16], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (64 x 192, f32) += A (64 x 16, bf16 in registers) * B (16 x 192, shared,
+// MN-major: the transpose flag is set), accumulating into d.
+__device__ __forceinline__ void wgmma_rs_n192(
+    float (&d)[96], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
+    uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+      "{%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
 }
 
@@ -767,13 +855,352 @@ int launch(const void* q, const void* k, const void* v, void* o, int d,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- head dims past 256 --------------------------------------------------
+// A unit is 64 query rows of one head of one batch element (and one slice of
+// the output columns past kWidest).  Both consumers take the unit's 64 rows:
+// each computes S = Q K^T itself and keeps its own softmax, and each owns
+// half of the output columns, whole boxes of 64 (consumer 0 the larger half
+// when the boxes are odd).  K and V tiles hold WideLayout<D>::kBN keys.
+constexpr int kWideBM = 64;       // query rows a unit
+constexpr int kWidest = 512;      // the widest instantiation
+
+template <int D>
+struct WideLayout {
+  static constexpr int kBoxes = D / 64;
+  static constexpr int kBN = D > 320 ? 32 : 64;            // K/V rows a tile
+  static constexpr int kBoxes0 = (kBoxes + 1) / 2;         // consumer 0's O
+  static constexpr int kBoxes1 = kBoxes - kBoxes0;         // consumer 1's O
+  static constexpr int kQ = kBoxes * kWideBM * kSpan;      // Q chunk bytes
+  static constexpr int kTile = kBoxes * kBN * kSpan;       // K or V tile bytes
+  static constexpr int kBars = kQ + kStages * 2 * kTile;   // mbarrier offset
+  static constexpr int kBytes = kBars + (3 * kStages + 2) * 8 + 1024;
+  static_assert(kBytes <= 232448, "beyond the H100's shared-memory opt-in");
+};
+
+struct WideUnit {
+  int q0, h, b, sl, n_kt;
+};
+
+// Units are numbered as unit_of's, the slices of one query tile and head
+// side by side.
+template <int kBN>
+__device__ __forceinline__ WideUnit wide_unit_of(int w, int n_qt, int hq,
+                                                 int batch, int n_sl, int sk,
+                                                 int causal) {
+  const int per_tile = hq * batch * n_sl;
+  const int r = w % per_tile;
+  WideUnit u;
+  u.q0 = (n_qt - 1 - w / per_tile) * kWideBM;
+  u.sl = r % n_sl;
+  u.h = r / n_sl % hq;
+  u.b = r / n_sl / hq;
+  u.n_kt = (sk + kBN - 1) / kBN;
+  if (causal) u.n_kt = min(u.n_kt, (u.q0 + kWideBM - 1) / kBN + 1);
+  return u;
+}
+
+// O (64 x 64 NB, f32) += P (64 x 16, bf16 in registers) V (16 x 64 NB).
+template <int NB>
+__device__ __forceinline__ void wgmma_pv(float (&acc)[32 * NB], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint64_t b) {
+  if constexpr (NB == 4)
+    wgmma_rs_n256(acc, a0, a1, a2, a3, b);
+  else if constexpr (NB == 3)
+    wgmma_rs_n192(acc, a0, a1, a2, a3, b);
+  else if constexpr (NB == 2)
+    wgmma_rs_n128(acc, a0, a1, a2, a3, b);
+  else
+    wgmma_rs_n64(acc, a0, a1, a2, a3, b);
+}
+
+// One consumer: output boxes B0 .. B0 + NB - 1 of each of its block's
+// units.  The ring advances one stage per (kv tile, chunk of q and k); a
+// stage of the last chunk also holds the tile's V.
+template <int D, int B0, int NB>
+__device__ __forceinline__ void wide_consume(uint32_t base, Barriers bar,
+                                             __nv_bfloat16* __restrict__ o,
+                                             int batch, int hq, int sq,
+                                             int sk, int ld, int n_sl,
+                                             int causal, float scale_log2) {
+  using L = WideLayout<D>;
+  constexpr int kBN = L::kBN;
+  const int n_qt = sq / kWideBM;
+  const int units = n_qt * hq * batch * n_sl;
+  const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+  const int col0 = 2 * (lane % 4);
+  int g = 0, nq = 0;                 // ring stages and Q chunks so far
+  for (int it = 0; unit_index(it) < units; ++it) {
+    const WideUnit u = wide_unit_of<kBN>(unit_index(it), n_qt, hq, batch,
+                                         n_sl, sk, causal);
+    const int row0 = u.q0 + 16 * warp + lane / 4;  // +8: odd pairs
+    float acc[32 * NB];
+#pragma unroll
+    for (int i = 0; i < 32 * NB; ++i) acc[i] = 0.0f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+
+    for (int j = 0; j < u.n_kt; ++j) {
+      // S = Q K^T, chunk by chunk of D columns (one chunk up to kWidest)
+      float s[kBN / 2];
+      int st = 0;
+      uint32_t ph = 0, k_s = 0;
+      for (int ch = 0; ch < n_sl; ++ch, ++g) {
+        st = g % kStages;
+        ph = (g / kStages) & 1;
+        k_s = base + L::kQ + st * 2 * L::kTile;
+        if (n_sl > 1 || j == 0) mbar_wait(bar.q_full(), nq & 1);
+        mbar_wait(bar.full_k(st), ph);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t q_box = (kk / 4) * kWideBM * kSpan + (kk % 4) * 32;
+          const uint32_t k_box = (kk / 4) * kBN * kSpan + (kk % 4) * 32;
+          const uint64_t qd = smem_desc(base + q_box, 16, 8 * kSpan);
+          const uint64_t kd = smem_desc(k_s + k_box, 16, 8 * kSpan);
+          if constexpr (kBN == 64)
+            wgmma_ss_n64(s, qd, kd, ch > 0 || kk > 0);
+          else
+            wgmma_ss_n32(s, qd, kd, ch > 0 || kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        hold(s);
+        if (n_sl > 1 || j == u.n_kt - 1) {         // Q's chunk is read
+          if (t == 0) mbar_arrive(bar.q_empty());
+          ++nq;
+        }
+        if (ch < n_sl - 1 && t == 0) mbar_arrive(bar.empty(st));
+      }
+
+      const int n0 = j * kBN;
+      if (n0 + kBN > sk || (causal && n0 + kBN - 1 > u.q0)) {
+#pragma unroll
+        for (int i = 0; i < kBN / 2; ++i) {
+          const int col = n0 + 8 * (i / 4) + col0 + i % 2;
+          const int row = row0 + 8 * ((i / 2) % 2);
+          if (col >= sk || (causal && col > row)) s[i] = -INFINITY;
+        }
+      }
+
+      // online softmax in the log2 domain, as flash_fwd_sm90_kernel's
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int i = 0; i < kBN / 2; ++i)
+        mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], s[i]);
+      float mu[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r] * scale_log2);
+        mu[r] = m_new == -INFINITY ? 0.0f : m_new;
+        const float alpha = ex2(m[r] - mu[r]);
+        m[r] = m_new;
+        l[r] *= alpha;
+#pragma unroll
+        for (int i = 0; i < 32 * NB; ++i)
+          if ((i / 2) % 2 == r) acc[i] *= alpha;
+      }
+      uint32_t p[kBN / 4];
+#pragma unroll
+      for (int i = 0; i < kBN / 2; i += 2) {
+        const int r = (i / 2) % 2;
+        const float p0 = ex2(fmaf(s[i], scale_log2, -mu[r]));
+        const float p1 = ex2(fmaf(s[i + 1], scale_log2, -mu[r]));
+        l[r] += p0 + p1;
+        p[i / 2] = pack_bf16(p0, p1);
+      }
+
+      // O += P V over this consumer's boxes of the tile's V
+      const uint32_t v_s = k_s + L::kTile + B0 * kBN * kSpan;
+      hold(acc);
+      hold(p);
+      mbar_wait(bar.full_v(st), ph);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBN / 16; ++kk)
+        wgmma_pv<NB>(acc, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
+                     p[4 * kk + 3],
+                     smem_desc(v_s + kk * 16 * kSpan, kBN * kSpan, 8 * kSpan));
+      wgmma_commit();
+      wgmma_wait_all();
+      hold(acc);
+      if (t == 0) mbar_arrive(bar.empty(st));      // the stage is free
+    }
+
+    // epilogue: O / l in bf16, straight from the registers to device memory
+    // (a row's four threads write 16 contiguous bytes a box column of 8)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      l[r] = 1.0f / l[r];
+    }
+    const int c_base = u.sl * D + 64 * B0 + col0;
+#pragma unroll
+    for (int i = 0; i < 32 * NB; i += 2) {
+      const int r = (i / 2) % 2;
+      const int col = c_base + 8 * (i / 4);
+      if (col < ld) {
+        const size_t at = (static_cast<size_t>(u.b) * sq + row0 + 8 * r) *
+                              hq * ld +
+                          static_cast<size_t>(u.h) * ld + col;
+        *reinterpret_cast<uint32_t*>(o + at) =
+            pack_bf16(acc[i] * l[r], acc[i + 1] * l[r]);
+      }
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_sm90_wide_kernel(const __grid_constant__ CUtensorMap tq,
+                               const __grid_constant__ CUtensorMap tk,
+                               const __grid_constant__ CUtensorMap tv,
+                               __nv_bfloat16* __restrict__ o, int batch,
+                               int hq, int hkv, int sq, int sk, int ld,
+                               int n_sl, int causal, float scale_log2) {
+  using L = WideLayout<D>;
+  constexpr int kBN = L::kBN;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const Barriers bar{base + L::kBars};
+  const int n_qt = sq / kWideBM;
+  const int units = n_qt * hq * batch * n_sl;
+  const int group = hq / hkv;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(bar.full_k(st), 1);                  // the producer
+      mbar_init(bar.full_v(st), 1);
+      mbar_init(bar.empty(st), 2);                   // both consumers
+    }
+    mbar_init(bar.q_full(), 1);
+    mbar_init(bar.q_empty(), 2);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---- producer: one thread issues every load.  Q stays for the whole
+    // unit when it has one chunk (d <= kWidest); past kWidest each chunk of
+    // Q is loaded again beside the same chunk of each K tile.  A stage
+    // without V (a chunk before the last) completes full_v by a plain
+    // arrival, so every barrier of a stage counts the stage's uses.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
+    if (threadIdx.x == 0) {
+      int g = 0, nq = 0;
+      for (int it = 0; unit_index(it) < units; ++it) {
+        const WideUnit u = wide_unit_of<kBN>(unit_index(it), n_qt, hq, batch,
+                                             n_sl, sk, causal);
+        const int hk = u.h / group;
+        for (int j = 0; j < u.n_kt; ++j) {
+          for (int ch = 0; ch < n_sl; ++ch, ++g) {
+            if (n_sl > 1 || j == 0) {
+              mbar_wait(bar.q_empty(), (nq++ & 1) ^ 1);
+              mbar_arrive_expect_tx(bar.q_full(), L::kQ);
+              for (int c = 0; c < L::kBoxes; ++c)
+                tma_load_4d(base + c * kWideBM * kSpan, &tq, bar.q_full(),
+                            ch * D + 64 * c, u.h, u.q0, u.b);
+              // the next unit's Q, read once from device memory, into L2
+              if (n_sl == 1 && unit_index(it + 1) < units) {
+                const WideUnit n = wide_unit_of<kBN>(
+                    unit_index(it + 1), n_qt, hq, batch, n_sl, sk, causal);
+                for (int c = 0; c < L::kBoxes; ++c)
+                  tma_prefetch_4d(&tq, 64 * c, n.h, n.q0, n.b);
+              }
+            }
+            const int st = g % kStages;
+            const uint32_t k_s = base + L::kQ + st * 2 * L::kTile;
+            mbar_wait(bar.empty(st), ((g / kStages) & 1) ^ 1);
+            mbar_arrive_expect_tx(bar.full_k(st), L::kTile);
+            for (int c = 0; c < L::kBoxes; ++c)
+              tma_load_4d(k_s + c * kBN * kSpan, &tk, bar.full_k(st),
+                          ch * D + 64 * c, hk, j * kBN, u.b);
+            if (ch == n_sl - 1) {
+              mbar_arrive_expect_tx(bar.full_v(st), L::kTile);
+              for (int c = 0; c < L::kBoxes; ++c)
+                tma_load_4d(k_s + L::kTile + c * kBN * kSpan, &tv,
+                            bar.full_v(st), u.sl * D + 64 * c, hk, j * kBN,
+                            u.b);
+            } else {
+              mbar_arrive(bar.full_v(st));
+            }
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumers: the unit's 64 rows each, half of its columns each
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
+    if (wg == 1)
+      wide_consume<D, 0, L::kBoxes0>(base, bar, o, batch, hq, sq, sk, ld,
+                                     n_sl, causal, scale_log2);
+    else
+      wide_consume<D, L::kBoxes0, L::kBoxes1>(base, bar, o, batch, hq, sq,
+                                              sk, ld, n_sl, causal,
+                                              scale_log2);
+  }
+}
+
+// The output columns each unit takes: the row width up to kWidest, past it
+// ld cut into n = ceil(ld / kWidest) slices of a multiple of 64 columns.
+int slice_width(int ld) {
+  if (ld <= kWidest) return ld;
+  const int n = (ld + kWidest - 1) / kWidest;
+  return ((ld + n - 1) / n + 63) / 64 * 64;
+}
+
+// D, a multiple of 64 past 256, is the instantiation, ld the row width in
+// memory and d the caller's head dim: each of the ceil(ld / D) slices of
+// the output reads q and k in as many chunks of D columns.
+template <int D>
+int launch_wide(const void* q, const void* k, const void* v, void* o, int d,
+                int ld, int b, int hq, int hkv, int sq, int sk, int causal,
+                cudaStream_t stream) {
+  using L = WideLayout<D>;
+  CUtensorMap mq, mk, mv;
+  if (!make_map(&mq, q, ld, hq, sq, b, kWideBM) ||
+      !make_map(&mk, k, ld, hkv, sk, b, L::kBN) ||
+      !make_map(&mv, v, ld, hkv, sk, b, L::kBN))
+    return static_cast<int>(cudaErrorInvalidValue);
+  static int sms[kMaxDevices] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (device >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (sms[device] == 0) {
+    int count = 0;
+    err = cudaFuncSetAttribute(flash_fwd_sm90_wide_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               L::kBytes);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount,
+                                   device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sms[device] = count;
+  }
+  const int n_sl = (ld + D - 1) / D;
+  const long long units =
+      static_cast<long long>(sq / kWideBM) * hq * b * n_sl;
+  if (units > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  const int grid = static_cast<int>(units < sms[device] ? units : sms[device]);
+  const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(d));
+  flash_fwd_sm90_wide_kernel<D><<<grid, kThreads, L::kBytes, stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), b, hq, hkv, sq, sk, ld,
+      n_sl, causal, scale_log2);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // bfloat16 only.  q (b, sq, hq, ld); k, v (b, sk, hkv, ld); o (b, sq, hq,
 // ld); d <= ld the head dim (the scale is 1/sqrt(d)), ld a multiple of 8 (TMA
-// takes rows 16 bytes apart) at most 256 whose columns past d are zeros; sq
-// and sk multiples of 64; every pointer 16-byte aligned.  The instantiation
-// is the smallest of 64, 128 and 256 that holds ld.
+// takes rows 16 bytes apart) whose columns past d are zeros; sq and sk
+// multiples of 64; every pointer 16-byte aligned.  The instantiation is the
+// smallest of 64, 128, 256, 320, 384, 448 and 512 that holds ld, past 512
+// the one that holds slice_width(ld).
 extern "C" int flash_attention_sm90_fwd(const void* q, const void* k,
                                         const void* v, void* o, int b, int hq,
                                         int hkv, int sq, int sk, int d, int ld,
@@ -794,5 +1221,14 @@ extern "C" int flash_attention_sm90_fwd(const void* q, const void* k,
     return launch<128>(q, k, v, o, d, ld, b, hq, hkv, sq, sk, causal, s);
   if (ld <= 256)
     return launch<256>(q, k, v, o, d, ld, b, hq, hkv, sq, sk, causal, s);
+  const int w = slice_width(ld);
+  if (w <= 320)
+    return launch_wide<320>(q, k, v, o, d, ld, b, hq, hkv, sq, sk, causal, s);
+  if (w <= 384)
+    return launch_wide<384>(q, k, v, o, d, ld, b, hq, hkv, sq, sk, causal, s);
+  if (w <= 448)
+    return launch_wide<448>(q, k, v, o, d, ld, b, hq, hkv, sq, sk, causal, s);
+  if (w <= 512)
+    return launch_wide<512>(q, k, v, o, d, ld, b, hq, hkv, sq, sk, causal, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,30 +1,28 @@
 """Flash attention (causal or full, grouped-query) for NVIDIA Hopper.
 
-Three CUDA C++ kernels replace the reference's Pallas ``flash_attention``
-(``repro/kernels/flash_attention.py:78``); ``kernel_for`` picks one by dtype
-and head dim:
+Two CUDA C++ sources replace the reference's Pallas ``flash_attention``
+(``repro/kernels/flash_attention.py:78``); ``kernel_for`` picks one by
+dtype alone:
 
-* ``csrc/flash_attention_sm90.cu`` for bfloat16 up to ``MAX_HEAD_DIM``:
-  the tensor cores (``wgmma`` on tiles that TMA loads), with the
-  probabilities rounded to bfloat16 for the P.V product, as the
-  reference's f32 dot at default precision does on the TPU's matrix unit;
-* ``csrc/flash_attention.cu`` for float32 up to ``MAX_HEAD_DIM``: the CUDA
-  cores, all in float32;
-* ``csrc/flash_attention_wide.cu`` for every head dim past
-  ``MAX_HEAD_DIM``, in both dtypes: the CUDA cores, the scores staged over
-  d in 64-wide chunks and recomputed for each 128-wide slice of the output
-  columns; in bfloat16 with the tensor-core kernel's numerics.
+* ``csrc/flash_attention_sm90.cu`` for bfloat16: the tensor cores
+  (``wgmma`` on tiles that TMA loads), with the probabilities rounded to
+  bfloat16 for the P.V product, as the reference's f32 dot at default
+  precision does on the TPU's matrix unit;
+* ``csrc/flash_attention.cu`` for float32: the CUDA cores, all in float32.
 
-The two tiled kernels take every head dim d from 1 to ``MAX_HEAD_DIM`` by
-one rule (``instantiation``): d runs the smallest instantiation D >= d of
-its kernel's ``INSTANTIATIONS``, whose columns past d read as zeros and add
-nothing.  They read rows whose width in memory is a multiple of 16 bytes
-(``row_width``); for a head dim that is not, the wrapper pads the columns
-with zeros and drops them from the output.  The wide kernel reads rows of
-any width and never reads past column d.  The scale is always
-``1/sqrt(d)`` of the caller's d.  Each source's note says what bounds it
-and how it is laid out.  This module launches them and holds their plain
-PyTorch version.
+Each holds two kernels: one for head dims up to 256 and one past it, whose
+two consumers (bfloat16) or two warps a row (float32) split the output
+columns and compute the scores once.  Both take every head dim d by one
+rule (``instantiation``): d runs the smallest instantiation D >= d of its
+source's ``INSTANTIATIONS``, whose columns past d read as zeros and add
+nothing; past the widest, ``MAX_HEAD_DIM``, the output columns are cut into
+``column_slices`` of at most that width, each of which computes the scores
+over the whole row once.  They read rows whose width in memory is a
+multiple of 16 bytes (``row_width``); for a head dim that is not, the
+wrapper pads the columns with zeros and drops them from the output.  The
+scale is always ``1/sqrt(d)`` of the caller's d.  Each source's note says
+what bounds it and how it is laid out.  This module launches them and
+holds their plain PyTorch version.
 
 The kernels and the plain version take the model layout: q (B, Sq, Hq, d),
 k and v (B, Sk, Hkv, d), with query head h reading kv head
@@ -46,61 +44,75 @@ import torch.nn.functional as F
 from ._build import check_launch, load_library
 
 __all__ = ["BLOCK", "MAX_HEAD_DIM", "INSTANTIATIONS",
-           "ROW_ELEMS", "NEG_INF", "instantiation", "row_width", "sm90_tile",
-           "SOURCES", "LAUNCHES", "BY_HEAD_DIM",
+           "ROW_ELEMS", "NEG_INF", "instantiation", "column_slices",
+           "row_width", "sm90_tile", "SOURCES", "LAUNCHES", "BY_HEAD_DIM",
            "kernel_for",
            "flash_attention_kernel",
            "flash_attention_plain", "flash_attention_sm90_plain"]
 
 BLOCK = 64                      # the kernels' sequence granule
-MAX_HEAD_DIM = 256              # the widest instantiation of the tiled kernels
+MAX_HEAD_DIM = 512              # the widest instantiation of both sources
 NEG_INF = -1e30
 # kernel_for's answer -> the source of that kernel, under kernels/
 SOURCES = {"sm90": "csrc/flash_attention_sm90.cu",
-           "cuda_core": "csrc/flash_attention.cu",
-           "wide": "csrc/flash_attention_wide.cu"}
-# the tiled kernels -> the head dims their entry points instantiate
-INSTANTIATIONS = {"sm90": (64, 128, 256), "cuda_core": (32, 64, 128, 256)}
+           "cuda_core": "csrc/flash_attention.cu"}
+# kernel_for's answer -> the head dims its entry point instantiates (up to
+# 256 the first kernel of the source, past it the second)
+INSTANTIATIONS = {"sm90": (64, 128, 256, 320, 384, 448, 512),
+                  "cuda_core": (32, 64, 128, 256, 320, 384, 448, 512)}
 # kernel_for's answer -> the multiple of elements its rows take in memory
-# (16 bytes: TMA's row stride for bfloat16, cp.async's copy for float32;
-# the wide kernel reads element by element)
-ROW_ELEMS = {"sm90": 8, "cuda_core": 4, "wide": 1}
+# (16 bytes: TMA's row stride for bfloat16, cp.async's copy for float32)
+ROW_ELEMS = {"sm90": 8, "cuda_core": 4}
 
 
 def kernel_for(dtype: torch.dtype, d: int) -> str:
-    """Which kernel takes inputs of ``dtype`` at head dim ``d``: ``"wide"``
-    past ``MAX_HEAD_DIM`` in either dtype; up to it ``"sm90"`` (tensor
-    cores) for bfloat16, else ``"cuda_core"`` (float32)."""
-    if d > MAX_HEAD_DIM:
-        return "wide"
+    """Which kernel takes inputs of ``dtype`` at head dim ``d``: at every d
+    ``"sm90"`` (tensor cores) for bfloat16, else ``"cuda_core"``
+    (float32)."""
+    del d                       # every head dim: the route is the dtype's
     return "sm90" if dtype == torch.bfloat16 else "cuda_core"
-
-
-def instantiation(dtype: torch.dtype, d: int) -> int:
-    """The instantiation that head dim ``d`` runs in ``dtype``'s tiled
-    kernel: the smallest of its ``INSTANTIATIONS`` that is at least d.
-    Raises for a head dim outside 1..``MAX_HEAD_DIM`` (past it the wide
-    kernel runs, which has no instantiations)."""
-    if not 1 <= d <= MAX_HEAD_DIM:
-        raise ValueError(f"head dim {d} outside 1..{MAX_HEAD_DIM}: the "
-                         f"tiled attention kernels take at most "
-                         f"{MAX_HEAD_DIM}")
-    return next(D for D in INSTANTIATIONS[kernel_for(dtype, d)] if D >= d)
 
 
 def row_width(dtype: torch.dtype, d: int) -> int:
     """The row width in memory that the kernel of ``dtype`` and ``d``
-    reads: d rounded up to its ``ROW_ELEMS`` (at most the instantiation)."""
+    reads: d rounded up to its ``ROW_ELEMS``."""
     unit = ROW_ELEMS[kernel_for(dtype, d)]
     return -(-d // unit) * unit
 
 
+def column_slices(dtype: torch.dtype, d: int) -> tuple[int, int]:
+    """(n, w): the entry points' ``slice_width`` rule.  Up to
+    ``MAX_HEAD_DIM`` one slice of the row width; past it the row width ld
+    cut into n = ceil(ld / MAX_HEAD_DIM) slices of w columns, ceil(ld / n)
+    rounded up to a multiple of 64 (the last one narrower), each of which
+    computes the scores over the whole row."""
+    ld = row_width(dtype, d)
+    if ld <= MAX_HEAD_DIM:
+        return 1, ld
+    n = -(-ld // MAX_HEAD_DIM)
+    per_slice = -(-ld // n)
+    w = -(-per_slice // 64) * 64
+    return -(-ld // w), w
+
+
+def instantiation(dtype: torch.dtype, d: int) -> int:
+    """The instantiation that head dim ``d`` runs in ``dtype``'s kernel:
+    the smallest of its ``INSTANTIATIONS`` that is at least d; past
+    ``MAX_HEAD_DIM`` the one each of its ``column_slices`` runs (>= the
+    slice width)."""
+    if d < 1:
+        raise ValueError(f"head dim {d}: expected at least 1")
+    _, w = column_slices(dtype, d)
+    return next(D for D in INSTANTIATIONS[kernel_for(dtype, d)] if D >= w)
+
+
 def sm90_tile(d: int) -> int:
-    """The keys a kv tile holds in bfloat16 at head dim ``d``:
-    ``Layout<D>::kBN`` of the tensor-core kernel's instantiation D >= d (128
-    up to d 128, 64 above), and the wide kernel's 64 past
-    ``MAX_HEAD_DIM``."""
-    return 128 if d <= 128 else 64
+    """The keys a kv tile holds in bfloat16 at head dim ``d``: the
+    tensor-core kernels' ``Layout<D>::kBN`` and ``WideLayout<D>::kBN`` of
+    the instantiation D that d runs: 128 up to D 128, 64 up to D 320, 32
+    past it."""
+    inst = instantiation(torch.bfloat16, d)
+    return 128 if inst <= 128 else 64 if inst <= 320 else 32
 
 
 # Launches of each kernel, raised where it is launched (``ops.mha`` counts
@@ -110,16 +122,15 @@ def sm90_tile(d: int) -> int:
 LAUNCHES = {name: 0 for name in SOURCES}
 BY_HEAD_DIM = {name: Counter() for name in SOURCES}
 _ENTRIES = {"sm90": "flash_attention_sm90_fwd",
-            "cuda_core": "flash_attention_fwd",
-            "wide": "flash_attention_wide_fwd"}
+            "cuda_core": "flash_attention_fwd"}
 
 
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            causal: bool) -> torch.Tensor:
-    """CUDA flash attention by the kernel ``kernel_for(q.dtype, d)`` names
-    (a tiled one at ``instantiation(q.dtype, d)``): each query tile of each
-    head and batch element walks the kv tiles in a loop that stops at the
-    diagonal when ``causal``.  Columns are padded with zeros to
+    """CUDA flash attention by the kernel ``kernel_for(q.dtype, d)`` names,
+    at ``instantiation(q.dtype, d)``: each query tile of each head, batch
+    element (and column slice) walks the kv tiles in a loop that stops at
+    the diagonal when ``causal``.  Columns are padded with zeros to
     ``row_width`` and dropped from the output."""
     lib, _ = load_library()
     b, sq, hq, d = q.shape
@@ -131,10 +142,9 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     entry = _ENTRIES[route]
-    dtype_arg = (int(q.dtype == torch.bfloat16),) if route == "wide" else ()
     check_launch(lib, entry, getattr(lib, entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq,
-        hkv, sq, sk, d, ld, int(causal), *dtype_arg, stream))
+        hkv, sq, sk, d, ld, int(causal), stream))
     LAUNCHES[route] += 1
     BY_HEAD_DIM[route][d] += 1
     return out if ld == d else out[..., :d]
@@ -160,8 +170,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention_sm90_plain(q: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor, causal: bool) -> torch.Tensor:
-    """The tensor-core kernel's numerics in plain PyTorch, which the wide
-    kernel follows in bfloat16 past ``MAX_HEAD_DIM``: float32 scores, an
+    """The tensor-core kernels' numerics in plain PyTorch: float32 scores, an
     online softmax over ``sm90_tile(d)``-key tiles in the log2 domain, the
     unnormalised probabilities rounded to bfloat16 for P.V (their sum taken
     before rounding), the output divided by that sum and rounded to q's

@@ -90,21 +90,24 @@ def test_mha_float32_at_zamba2s_head_dim_matches_pallas(d, causal):
 
 
 def _switch(source: str) -> dict:
-    """Row-width threshold -> the ``launch<D>`` an entry point's switch
-    runs for row widths up to it, read from the source."""
+    """Row-width threshold -> the instantiation an entry point's switch
+    runs for row widths up to it, read from the source: ``launch<D>`` up to
+    256 by the row width, ``launch_wide<D>`` past it by the slice width
+    (the row width itself up to 512)."""
     text = (pathlib.Path(fa.__file__).parent / source).read_text()
     return {int(w): int(inst) for w, inst in re.findall(
-        r"if \(ld <= (\d+)\)\s+return launch<(\d+)>", text)}
+        r"if \((?:ld|w) <= (\d+)\)\s+return launch(?:_wide)?<(\d+)>", text)}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["float32", "bfloat16"])
 def test_every_head_dim_routes_to_an_instantiation_its_switch_has(dtype):
-    """Each d in 1..256 runs ``instantiation(dtype, d)`` >= d, which is the
-    ``launch<D>`` that the source's switch picks for the row width the
+    """Each d in 1..512 runs ``instantiation(dtype, d)`` >= d, which is the
+    instantiation that the source's switch picks for the row width the
     wrapper hands it (a multiple of ``ROW_ELEMS``, as the entry point's own
-    check asks); d 257 is past the rule, and ``ops.mha`` takes it on the
-    wide kernel."""
+    check asks); past 512 the same source runs column slices
+    (``column_slices``) at the instantiation that holds their width, and
+    ``ops.mha`` takes d 513."""
     route = fa.kernel_for(dtype, fa.MAX_HEAD_DIM)
     source = fa.SOURCES[route]
     text = (pathlib.Path(fa.__file__).parent / source).read_text()
@@ -119,13 +122,19 @@ def test_every_head_dim_routes_to_an_instantiation_its_switch_has(dtype):
         assert ld % unit == 0 and d <= ld < d + unit
         picked = switch[min(w for w in switch if w >= ld)]
         assert picked == fa.instantiation(dtype, d) >= d, d
-    with pytest.raises(ValueError, match="at most 256"):
-        fa.instantiation(dtype, fa.MAX_HEAD_DIM + 1)
-    assert fa.kernel_for(dtype, fa.MAX_HEAD_DIM + 1) == "wide"
-    q = torch.zeros(1, 64, 2, 257, dtype=dtype)
-    kv = torch.zeros(1, 64, 1, 257, dtype=dtype)
+        assert fa.column_slices(dtype, d) == (1, ld)
+    with pytest.raises(ValueError, match="at least 1"):
+        fa.instantiation(dtype, 0)
+    past = fa.MAX_HEAD_DIM + 1
+    assert fa.kernel_for(dtype, past) == route
+    n, w = fa.column_slices(dtype, past)
+    assert (n, w) == (2, 320)
+    assert switch[min(x for x in switch if x >= w)] == \
+        fa.instantiation(dtype, past) == 320
+    q = torch.zeros(1, 64, 2, past, dtype=dtype)
+    kv = torch.zeros(1, 64, 1, past, dtype=dtype)
     ops.reset_launches()
-    assert tuple(ops.mha(q, kv, kv).shape) == (1, 64, 2, 257)
+    assert tuple(ops.mha(q, kv, kv).shape) == (1, 64, 2, past)
     assert ops.mha.launches == 1
 
 

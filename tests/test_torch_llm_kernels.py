@@ -123,10 +123,12 @@ def _csrc(name: str) -> str:
 
 
 def _switch(name: str) -> dict:
-    """Row-width threshold -> the ``launch<D>`` the entry point's switch runs
-    for row widths up to it."""
+    """Row-width threshold -> the ``launch<D>`` (up to 256) or
+    ``launch_wide<D>`` (past it, by the slice width, the row width itself up
+    to 512) the entry point's switch runs for row widths up to it."""
     return {int(w): int(inst) for w, inst in re.findall(
-        r"if \(ld <= (\d+)\)\s+return launch<(\d+)>", _csrc(name))}
+        r"if \((?:ld|w) <= (\d+)\)\s+return launch(?:_wide)?<(\d+)>",
+        _csrc(name))}
 
 
 def _sm90_instantiations() -> dict:
@@ -151,22 +153,27 @@ def test_sm90_head_dims_are_the_ones_its_source_instantiates():
     assert all(inst[d] == fa.instantiation(torch.bfloat16, d) >= d
                for d in HEAD_DIMS)
     assert {d: inst[d] for d in (16, 32)} == {16: 64, 32: 64}
-    assert all(inst[d] == d for d in (64, 128, 256))
+    assert all(inst[d] == d for d in (64, 128, 256, 320, 384, 448, 512))
     assert "sq % 64 != 0 || sk % 64 != 0" in src and fa.BLOCK == 64
 
 
 def test_sm90_tiles_are_the_ones_its_layout_gives_each_head_dim():
     """The plain emulation rescales where the kernel does: every
     ``sm90_tile(d)`` keys, which is ``Layout<D>::kBN`` in the source for
-    the instantiation D that head dim d runs on."""
+    the instantiation D that head dim d runs on up to 256, and
+    ``WideLayout<D>::kBN`` past it."""
     src = _csrc("flash_attention_sm90.cu")
-    (above, big, small), = re.findall(
-        r"static constexpr int kBN = D > (\d+) \? (\d+) : (\d+);", src)
+    layouts = dict(re.findall(
+        r"struct (Layout|WideLayout) \{[^}]*?static constexpr int kBN = "
+        r"(D > \d+ \? \d+ : \d+);", src))
+    assert sorted(layouts) == ["Layout", "WideLayout"]
     inst = _sm90_instantiations()
     for d in HEAD_DIMS:
-        assert fa.sm90_tile(d) == (int(big) if inst[d] > int(above)
-                                   else int(small)), d
-    assert fa.sm90_tile(256) == 64
+        above, big, small = map(int, re.findall(
+            r"\d+", layouts["Layout" if inst[d] <= 256 else "WideLayout"]))
+        assert fa.sm90_tile(d) == (big if inst[d] > above else small), d
+    assert [fa.sm90_tile(d) for d in (128, 256, 320, 384, 512)] == \
+        [128, 64, 64, 32, 32]
 
 
 @pytest.mark.parametrize("b,hq,hkv,s,d,causal", [
@@ -291,7 +298,7 @@ def test_sm90_plain_at_the_narrow_head_dims_matches_the_plain_version(d,
 def test_attention_kernel_counts_rise_only_where_a_kernel_launches():
     """On the CPU ``ops.mha`` counts its calls but launches no kernel, so
     no kernel's own count moves; ``reset_launches`` zeroes them."""
-    none = {"sm90": 0, "cuda_core": 0, "wide": 0}
+    none = {"sm90": 0, "cuda_core": 0}
     ops.reset_launches()
     assert fa.LAUNCHES == none
     for dtype in ("bfloat16", np.float32):
@@ -300,7 +307,7 @@ def test_attention_kernel_counts_rise_only_where_a_kernel_launches():
             ops.mha(q, k, v)
     assert ops.mha.launches == 4
     assert fa.LAUNCHES == none
-    fa.LAUNCHES.update(sm90=3, cuda_core=1, wide=2)
+    fa.LAUNCHES.update(sm90=3, cuda_core=1)
     ops.reset_launches()
     assert fa.LAUNCHES == none
 
@@ -310,7 +317,7 @@ def test_tensor_core_counts_by_head_dim_rise_only_where_it_launches():
     dims it launched at; ``ops.mha`` on the CPU moves none,
     ``reset_launches`` clears them."""
     zeros = {}
-    none = {"sm90": zeros, "cuda_core": zeros, "wide": zeros}
+    none = {"sm90": zeros, "cuda_core": zeros}
     ops.reset_launches()
     assert fa.BY_HEAD_DIM == none
     dims = (1, 16, 24, 32, 64, 80, 100, 128, 200, 256, 264)
@@ -321,8 +328,7 @@ def test_tensor_core_counts_by_head_dim_rise_only_where_it_launches():
     assert ops.mha.launches == 2 * len(dims)
     assert fa.BY_HEAD_DIM == none
     fa.BY_HEAD_DIM["sm90"].update({128: 80, 256: 2})
-    fa.BY_HEAD_DIM["cuda_core"].update({16: 2})
-    fa.BY_HEAD_DIM["wide"].update({320: 4})
+    fa.BY_HEAD_DIM["cuda_core"].update({16: 2, 320: 4})
     ops.reset_launches()
     assert fa.BY_HEAD_DIM == none
 

@@ -2,14 +2,19 @@
 reference.
 
 The reference's ``flash_attention`` has no bound on the head dim and its
-``wkv6_chunked_kernel`` none on K or V.  The port runs every d > 256 on
-``csrc/flash_attention_wide.cu`` (``flash_attention.kernel_for``), whose
-plain versions are ``flash_attention_plain`` in float32 and
-``flash_attention_sm90_plain`` in bfloat16 (the tensor-core kernel's
-numerics: probabilities rounded to bfloat16 for P.V, 64-key tiles past
-d 128).  WKV6 past 128 is split above the route in ``ops.wkv6``: K and V
-cut into slices of at most 128, y summed over the K slices and the state
-concatenated; on the CPU each slice runs ``wkv6_plain``.
+``wkv6_chunked_kernel`` none on K or V.  The port runs every d in bfloat16
+on ``csrc/flash_attention_sm90.cu`` (tensor cores) and every d in float32
+on ``csrc/flash_attention.cu`` (CUDA cores) (``flash_attention.kernel_for``):
+past 256 each source's second kernel, at the instantiations 320, 384, 448
+and 512, and past 512 in column slices of at most 512 that compute the
+scores over the whole row (``flash_attention.column_slices``).  Their plain
+versions are ``flash_attention_plain`` in float32 and
+``flash_attention_sm90_plain`` in bfloat16 (the tensor-core kernels'
+numerics: probabilities rounded to bfloat16 for P.V, ``sm90_tile(d)``-key
+tiles: 64 up to the d 320 instantiation, 32 past it).  WKV6 past 128 is
+split above the route in ``ops.wkv6``: K and V cut into slices of at most
+128, y summed over the K slices and the state concatenated; on the CPU
+each slice runs ``wkv6_plain``.
 
 Here ``ops.mha``, ``flash_attention_sm90_plain`` and ``ops.wkv6`` on the
 CPU are held to the reference's Pallas kernels in interpret mode (and
@@ -63,7 +68,7 @@ def _assert_attention_close(got, want, v, dtype):
 
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("d", [264, 320])
+@pytest.mark.parametrize("d", [264, 320, 384, 512, 640])
 def test_mha_past_head_dim_256_matches_pallas(d, dtype, causal):
     (tq, tk, tv), (jq, jk, jv) = _attention_inputs(1, 4, 2, 128, d, dtype,
                                                    seed=d + causal)
@@ -86,21 +91,49 @@ def test_mha_pads_a_ragged_causal_prompt_past_head_dim_256():
     _assert_attention_close(ops.mha(tq, tk, tv), want, tv, "float32")
 
 
+# head dim -> (instantiation, column slices, row width in bfloat16, in
+# float32, the bfloat16 kv tile)
+PAST_256 = {257: (320, 1, 264, 260, 64), 264: (320, 1, 264, 264, 64),
+            300: (320, 1, 304, 300, 64), 320: (320, 1, 320, 320, 64),
+            384: (384, 1, 384, 384, 32), 448: (448, 1, 448, 448, 32),
+            512: (512, 1, 512, 512, 32), 640: (320, 2, 640, 640, 64),
+            1000: (512, 2, 1000, 1000, 32)}
+ENTRIES = {"sm90": ("flash_attention_sm90_fwd", "flash_fwd_sm90_wide_kernel",
+                    "WideLayout"),
+           "cuda_core": ("flash_attention_fwd", "flash_fwd_wide_kernel",
+                         "WideTile")}
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["float32", "bfloat16"])
 def test_every_head_dim_past_256_routes_to_the_wide_kernel(dtype):
-    """Past ``MAX_HEAD_DIM`` both dtypes take the wide kernel, which reads
-    rows of any width (no padding copy) and rescales every 64 keys, the
-    tile ``sm90_tile`` gives the bfloat16 emulation there."""
-    for d in (257, 264, 300, 320, 512, 1000):
-        assert fa.kernel_for(dtype, d) == "wide"
-        assert fa.row_width(dtype, d) == d
-        assert fa.sm90_tile(d) == 64
-    assert fa.kernel_for(dtype, fa.MAX_HEAD_DIM) != "wide"
-    text = (pathlib.Path(fa.__file__).parent
-            / fa.SOURCES["wide"]).read_text()
-    assert re.search(r"constexpr int kBN = 64;", text)
-    assert 'extern "C" int flash_attention_wide_fwd(' in text
+    """Past 256 each dtype keeps its own source and takes that source's
+    wide kernel: the smallest of 320, 384, 448 and 512 that holds the row
+    (rows of no multiple of 16 bytes padded, as below 256), and past 512
+    column slices of a multiple of 64 that the instantiation holds, as few
+    as hold the row; the bfloat16 emulation's tile is the wide layout's
+    ``kBN`` (64 up to the d 320 instantiation, 32 past it)."""
+    route = "sm90" if dtype == torch.bfloat16 else "cuda_core"
+    for d, (inst, n, ld_bf16, ld_f32, tile) in PAST_256.items():
+        ld = ld_bf16 if dtype == torch.bfloat16 else ld_f32
+        assert fa.kernel_for(dtype, d) == route
+        assert fa.row_width(dtype, d) == ld
+        assert fa.instantiation(dtype, d) == inst
+        assert fa.column_slices(dtype, d) == (n, min(ld, inst))
+        assert n * inst >= ld > (n - 1) * inst
+        assert inst >= d if n == 1 else inst <= fa.MAX_HEAD_DIM
+        assert fa.sm90_tile(d) == tile
+    assert fa.MAX_HEAD_DIM == max(fa.INSTANTIATIONS[route]) == 512
+    entry, kernel, layout = ENTRIES[route]
+    text = (pathlib.Path(fa.__file__).parent / fa.SOURCES[route]).read_text()
+    assert f'extern "C" int {entry}(' in text
+    assert re.search(rf"__global__ void __launch_bounds__\(\w+, 1\)\s+"
+                     rf"{kernel}\(", text)
+    assert re.search(rf"struct {layout} {{", text)
+    if route == "sm90":
+        assert "static constexpr int kBN = D > 320 ? 32 : 64;" in text
+    assert not (pathlib.Path(fa.__file__).parent
+                / "csrc/flash_attention_wide.cu").exists()
 
 
 def _wkv_inputs(b, t, h, kd, vd, seed):
