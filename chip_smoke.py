@@ -63,6 +63,24 @@ to a plain version):
              truth (one measured retry), the same request served from the
              store with no launch, ``refresh: true`` measuring again, and
              the server and its workers stopped;
+3c. resilience — on phase 3's warmed runner, ``discover_cuda`` (planned,
+             fused) over a ``ChaosRunner`` under ``Resilience(max_retries=3)``:
+             value-preserving transient faults on single probes and batched
+             calls, retried to the same ground truth (one retry on a
+             measured miss) with retries >= 1 and nothing degraded; a
+             permanent fault on the bandwidth family, which alone degrades
+             (``L2`` and ``DeviceMemory`` ``read_bw`` unknown, the stream
+             kernels never launched) while every other discrete attribute
+             stays at ground truth; the dense, unfused run with
+             ``parallel=ParallelConfig(workers=2)``, inline (no worker
+             spawned, 876/13/8/8 launches); ``discover_sim`` pooled
+             (two spawned workers) and inline on the host cores, bit-equal
+             with no respawn, in a child process that never imports torch;
+             and a resilient ``discover_sim`` killed after 40 probe calls
+             and resumed from its checkpoint in a temporary
+             ``TopologyStore``, with no persisted row probed again.  Each
+             card run prints faults, retries, degraded families, launches
+             and wall beside the clean planned run's;
 4. llm kernels — ``ops.mha`` (the tensor-core kernels for bf16 at head
              dims 16, 32, 64, 80, 96, 100, 128 and 256, the CUDA-core ones
              for f32 at 3, 16, 64, 78, 80, 128 and 256, causal and full,
@@ -1104,10 +1122,10 @@ def _ground_truth_misses(topo) -> list:
     return misses
 
 
-def phase_discover(floor: dict) -> dict:
+def phase_discover(floor: dict) -> tuple:
     """Dense and unfused discovery, then the default (planned and fused)
     one, each on a fresh runner and each read around its own run; returns
-    the default run's launches."""
+    the default run's launches and wall, and its (warmed) runner."""
     from repro_torch.core import discover_cuda
     from repro_torch.core.probes import CudaRunner, make_cuda_model
     from repro_torch.kernels import ops
@@ -1174,7 +1192,7 @@ def phase_discover(floor: dict) -> dict:
           f"pchase_batch launches {planned['pchase_batch']} vs "
           f"{dense['pchase_batch']}, all launches {sum(planned.values())} "
           f"vs {sum(dense.values())}")
-    return planned
+    return planned, wall, runner
 
 
 # --------------------------------------------------------------------------
@@ -1254,6 +1272,218 @@ def phase_service() -> None:
         check(server._thread is None and not server.job_engine._threads,
               "the server or its job workers did not stop")
     print("[service] server stopped: accept loop and job workers joined")
+
+
+# --------------------------------------------------------------------------
+# Phase 3c: resilient, chaos-tested and process-parallel discovery
+# --------------------------------------------------------------------------
+# The chaos schedule of the transient run: value-preserving (no jitter, no
+# outliers), each request signature faulted at most once.  Which rows the
+# planned sweeps ask for follows the card's measurements, so which of them
+# a rate of 0.05 faults varies; seed 7 faults the first L2 read-bandwidth
+# call, whose signature every run asks for, so at least one work item is
+# retried in every run.
+TRANSIENT = dict(seed=7, transient_rate=0.05, batch_fault_rate=0.05,
+                 max_faults_per_request=1)
+# The sim pool's run, in a child process started with ``-c``: a spawned
+# worker re-imports its parent's main script, and this one imports torch;
+# the child's workers import the numpy-only probe modules alone.
+SIM_POOL_CHILD = r"""
+import json, sys, time
+from repro_torch.core import discover_sim, make_h100_like
+from repro_torch.core.engine.parallel import (ParallelConfig, get_global_pool,
+                                              shutdown_global_pools)
+cfg = ParallelConfig(workers=2, min_rows_per_shard=1, call_timeout_s=120.0)
+t0 = time.perf_counter()
+inline, ti = discover_sim(make_h100_like())
+inline_wall = time.perf_counter() - t0
+try:
+    t0 = time.perf_counter()
+    pooled, tp = discover_sim(make_h100_like(), parallel=cfg)
+    pooled_wall = time.perf_counter() - t0
+    pool = get_global_pool(cfg)
+    stats = {"workers": pool.workers, "calls": pool.calls,
+             "shards": pool.shards, "respawns": pool.respawns}
+finally:
+    shutdown_global_pools()
+doc = lambda t: {k: v for k, v in t.to_json().items() if k != "notes"}
+print(json.dumps({"equal": doc(inline) == doc(pooled),
+                  "cache_equal": ti.meta["cache"] == tp.meta["cache"],
+                  "inline_wall": inline_wall, "pooled_wall": pooled_wall,
+                  "torch_imported": "torch" in sys.modules, **stats}))
+"""
+
+
+def _chaos_discovery(runner, schedule, policy) -> tuple:
+    """``discover_cuda`` (planned, fused) over ``ChaosRunner(runner,
+    schedule)`` under ``policy``, read around its own run."""
+    from repro_torch.core import discover_cuda
+    from repro_torch.core.probes import ChaosRunner, make_cuda_model
+    from repro_torch.kernels import ops
+
+    chaos = ChaosRunner(runner, schedule)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    topo, timings = discover_cuda(make_cuda_model(), runner=chaos,
+                                  resilience=policy)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (chaos, topo, timings, wall,
+            {fn.__name__: fn.launches for fn in ops.WRAPPERS})
+
+
+def phase_resilience(runner, clean: dict, clean_wall: float) -> dict:
+    """Resilient discovery on the card, on phase 3's warmed runner: under
+    transient faults (retried to the ground truth, nothing degraded), under
+    a permanent bandwidth fault (that family alone degraded), and with a
+    pool config (inline: nothing spawned, the dense run's launches); then
+    on the host, a pooled ``discover_sim`` bit-equal to the inline one, and
+    a killed resilient ``discover_sim`` resumed from its checkpoint with no
+    persisted row probed again.  Returns the transient run's launches."""
+    import multiprocessing
+    import tempfile
+
+    from repro_torch.core import (Resilience, discover, discover_cuda,
+                                  discover_sim, make_h100_like)
+    from repro_torch.core.discover import (DiscoveryRequest,
+                                           _device_families,
+                                           sim_request_descriptor)
+    from repro_torch.core.engine import parallel as parallel_module
+    from repro_torch.core.engine.parallel import ParallelConfig
+    from repro_torch.core.engine.store import TopologyStore, request_key
+    from repro_torch.core.probes import (ChaosRunner, CudaRunner,
+                                         FaultSchedule, SimRunner)
+    from repro_torch.core.topology import PROVENANCE_DEGRADED
+    from repro_torch.kernels import ops
+
+    # backoff sleeps skipped: the wall is the retried work's alone
+    policy = Resilience(max_retries=3, sleep=lambda _s: None)
+
+    # 1. transient faults, retried to the ground truth (one retry on a
+    # measured miss, as in phase 3)
+    for attempt in (1, 2):
+        chaos, topo, timings, wall, launches = _chaos_discovery(
+            runner, FaultSchedule(**TRANSIENT), policy)
+        meta = timings.meta.get("resilience", {"retries": 0, "degraded": []})
+        label = "transient faults" + (" (retry)" if attempt == 2 else "")
+        print(f"[resilience] {label}: {chaos.faults_injected} faults "
+              f"injected ({chaos.batch_faults} on batched calls) in "
+              f"{chaos.calls} gated calls; retries {meta['retries']}, "
+              f"degraded {meta['degraded']}; launches {launches} (the "
+              f"clean planned run {clean}); wall {wall:.4f}s (the clean "
+              f"planned run {clean_wall:.4f}s)")
+        misses = _ground_truth_misses(topo)
+        if not misses:
+            break
+        print(f"[resilience] {label}: ground truth missed: {misses}")
+    check(not misses, f"discovery under transient faults missed the ground "
+          f"truth twice: {misses}")
+    check(chaos.faults_injected > 0 and meta["retries"] >= 1
+          and meta["degraded"] == [],
+          f"transient faults: {chaos.faults_injected} injected, "
+          f"resilience {meta}")
+    check(all(n > 0 for n in launches.values()),
+          f"a probe kernel never launched under transient faults: "
+          f"{launches}")
+    transient = launches
+
+    # 2. a permanent fault on the bandwidth family: it alone degrades
+    for attempt in (1, 2):
+        chaos, topo, timings, wall, launches = _chaos_discovery(
+            runner, FaultSchedule(seed=7, permanent_kinds=("bandwidth",)),
+            Resilience(max_retries=1, sleep=lambda _s: None))
+        meta = timings.meta["resilience"]
+        print(f"[resilience] permanent bandwidth fault: degraded "
+              f"{meta['degraded']}; retries {meta['retries']}; launches "
+              f"{launches}; wall {wall:.4f}s")
+        misses = _ground_truth_misses(topo)
+        if not misses:
+            break
+        print(f"[resilience] permanent fault: ground truth missed: {misses}")
+    check(not misses, f"discovery under a permanent bandwidth fault missed "
+          f"the ground truth twice: {misses}")
+    check(meta["degraded"]
+          and all(k.endswith("bandwidth") for k in meta["degraded"]),
+          f"permanent bandwidth fault: degraded {meta['degraded']}")
+    for name in ("L2", "DeviceMemory"):
+        attr = topo.find_memory(name).attrs.get("read_bw")
+        check(attr is not None and attr.value == "unknown"
+              and attr.provenance == PROVENANCE_DEGRADED,
+              f"{name}.read_bw not degraded: {attr}")
+    check(launches["stream_read"] == launches["stream_write"] == 0
+          and launches["pchase_batch"] > 0 and launches["eviction_batch"] > 0,
+          f"permanent bandwidth fault: launches {launches}")
+
+    # 3. a pool config on the CUDA path: inline, the dense run's launches
+    children = set(multiprocessing.active_children())
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    topo, timings = discover_cuda(runner=CudaRunner(), budget=None,
+                                  fuse=False,
+                                  parallel=ParallelConfig(workers=2))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in ops.WRAPPERS}
+    spawned = set(multiprocessing.active_children()) - children
+    print(f"[resilience] dense, unfused, parallel=ParallelConfig(workers=2):"
+          f" launches {launches}; worker processes spawned {len(spawned)}; "
+          f"pools {len(parallel_module._POOLS)}; wall {wall:.4f}s")
+    check(not spawned and not parallel_module._POOLS,
+          f"parallel= spawned workers on the CUDA path: {spawned}")
+    check(launches == DISCOVERY_LAUNCHES, f"dense discovery with parallel= "
+          f"launched {launches}, without it {DISCOVERY_LAUNCHES}")
+    misses = _ground_truth_misses(topo)
+    check(not misses, f"dense discovery with parallel=: {misses}")
+
+    # 4. the sim pool on this machine's host cores
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    out = subprocess.run([sys.executable, "-c", SIM_POOL_CHILD], cwd=HERE,
+                         env=env, capture_output=True, text=True,
+                         timeout=600)
+    check(out.returncode == 0, f"sim pool child failed: {out.stderr}")
+    pool = json.loads(out.stdout.strip().splitlines()[-1])
+    print(f"[resilience] discover_sim(make_h100_like()) pooled "
+          f"(workers=2, min_rows_per_shard=1) vs inline on "
+          f"{os.cpu_count()} host cores: " + json.dumps(pool))
+    check(pool["equal"] and pool["cache_equal"] and pool["respawns"] == 0
+          and pool["shards"] > pool["calls"] > 0
+          and not pool["torch_imported"], f"pooled sim discovery: {pool}")
+
+    # 5. a killed resilient discover_sim resumed from its checkpoint
+    dev = make_h100_like(seed=3)
+    _, clean_t = discover_sim(dev, n_samples=9, max_workers=0)
+    with tempfile.TemporaryDirectory() as root:
+        store = TopologyStore(root)
+        killed = DiscoveryRequest(
+            descriptor=sim_request_descriptor(dev, 9, None,
+                                              resilience=policy),
+            vendor=dev.vendor, model=dev.name,
+            backend=f"simulated:{dev.name}",
+            make_runner=lambda: ChaosRunner(
+                SimRunner(dev), FaultSchedule(seed=5, kill_after=40)),
+            n_samples=9, device_families=_device_families(dev, None),
+            max_workers=0, resilience=policy)
+        try:
+            discover(killed, store=store)
+            raise SmokeFailure("the chaos kill did not fire")
+        except RuntimeError as e:
+            check("chaos kill" in str(e), f"unexpected error: {e}")
+        key = request_key(killed.descriptor)
+        entries, families = store.load_checkpoint(key)
+        _, t = discover_sim(dev, n_samples=9, max_workers=0, store=store,
+                            resilience=policy)
+        resume, misses = t.meta["resume"], t.meta["cache"]["misses"]
+        print(f"[resilience] checkpoint after the kill: {len(entries)} rows, "
+              f"{len(families)} items done; resume {resume}; misses "
+              f"{misses} + rows {len(entries)} = {misses + len(entries)} "
+              f"(the clean run's misses {clean_t.meta['cache']['misses']});"
+              f" checkpoint cleared {not store.has_checkpoint(key)}")
+        check(resume == {"rows": len(entries), "families_done": len(families)}
+              and len(entries) > 0
+              and misses + len(entries) == clean_t.meta["cache"]["misses"]
+              and not store.has_checkpoint(key),
+              f"resume re-probed persisted rows: {resume}, misses {misses}")
+    return transient
 
 
 # --------------------------------------------------------------------------
@@ -1950,8 +2180,10 @@ def main() -> int:
     phase_build()
     floor = floor_table(np.random.default_rng(3))
     rows = phase_kernels(np.random.default_rng(0), floor)
-    launches = phase_discover(floor)
+    launches, clean_wall, runner = phase_discover(floor)
     phase_service()
+    resilient = phase_resilience(runner, dict(launches), clean_wall)
+    del runner
     rows.update(phase_llm_kernels(floor))
     launches.update(phase_serve())      # pchase, mha_d256: serve-run counts
     print(f"[smoke] all phases passed in {time.perf_counter() - t0:.1f}s; "
@@ -1995,6 +2227,10 @@ def main() -> int:
             "shape": row["shape"],
             "path": paths.get(name, "discover_cuda (planned, fused)"),
             "ok": True,
+            # the probe kernels' launches in the resilient run under
+            # transient faults (phase 3c), read around that run alone
+            **({"resilient_launches": resilient[name]}
+               if name in resilient else {}),
             **{key: row[key] for key in (
                 "device_ms", "library_device_ms", "bound_level",
                 "per_load_ns", "per_load_cycles",

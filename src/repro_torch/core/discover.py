@@ -36,9 +36,13 @@ parses a wire-format request into the identical descriptor (so the job's
 content-addressed key equals the store key the run persists under) and
 invokes these functions server-side from ``POST /discoveries``.
 
-Checkpointed fault tolerance (``resilience``) and the process pool
-(``parallel``) are not ported yet: they raise ``NotImplementedError``
-naming the missing module, and left at their defaults change nothing.
+Fault tolerance (``resilience``: retry, graceful degradation, and on the
+sim backend checkpoint write-through and resume) and the worker-process
+pool (``parallel``) work as in the reference package.  Only transient
+runner errors are retried or degraded: a build, launch or CUDA error from
+a kernel propagates.  The CUDA backend neither checkpoints (its samples
+are measured, not replayable) nor pools (its runner publishes no
+``RunnerSpec``, so it stays inline under ``parallel``).
 """
 from __future__ import annotations
 
@@ -48,6 +52,7 @@ from typing import Callable
 
 import numpy as np
 
+from .catalog import HardwareSpec
 from .errors import DegradedResult
 from .probes.amount import (align_segments, find_amount, find_cu_sharing,
                             find_sharing)
@@ -63,7 +68,7 @@ from .topology import (PROVENANCE_API, PROVENANCE_BENCHMARK,
 __all__ = ["DiscoveryTimings", "DiscoveryRequest", "discover",
            "discover_sim", "discover_sim_legacy", "discover_cuda",
            "default_sweep_budget", "sim_request_descriptor",
-           "cuda_request_descriptor"]
+           "cuda_request_descriptor", "spec_from_topology"]
 
 KIB = 1024
 
@@ -130,15 +135,18 @@ def _budget_descriptor(budget) -> dict | None:
 
 def sim_request_descriptor(device, n_samples: int,
                            elements: list[str] | None, budget=None,
-                           survey: bool = False) -> dict:
+                           survey: bool = False, resilience=None) -> dict:
     """Everything that determines a ``discover_sim`` result — and nothing
-    that does not.  Worker count, engine-vs-legacy, batching, and fusion
-    are excluded: request-keyed sample streams make them result-invisible,
-    so the key addresses that equivalence class.  A ``budget`` IS part of
-    the key (planned confidence metrics come from a window, not the full
-    series); ``budget=None`` keys as a dense request.  Equal to the
-    reference package's descriptor of the same request, so both packages
-    address one store alike."""
+    that does not.  Worker count, engine-vs-legacy, batching, fusion and
+    the process pool are excluded: request-keyed sample streams make them
+    result-invisible, so the key addresses that equivalence class.  A
+    ``budget`` IS part of the key (planned confidence metrics come from a
+    window, not the full series); ``budget=None`` keys as a dense request.
+    A ``resilience`` policy keys in only through its statistical knobs
+    (``Resilience.descriptor_entry``): retry/backoff settings never change
+    what a clean run measures, so a resilient rerun of a clean request is
+    a pure store hit.  Equal to the reference package's descriptor of the
+    same request, so both packages address one store alike."""
     d = {
         "kind": "discover_sim",
         "backend": f"simulated:{device.name}",
@@ -150,6 +158,9 @@ def sim_request_descriptor(device, n_samples: int,
     }
     if budget is not None:
         d["budget"] = _budget_descriptor(budget)
+    res_entry = None if resilience is None else resilience.descriptor_entry()
+    if res_entry is not None:
+        d["resilience"] = res_entry
     if survey:
         # Survey results are spot-check-verified copies, not full measures —
         # they must never collide with a full run's key.  Only present when
@@ -161,14 +172,16 @@ def sim_request_descriptor(device, n_samples: int,
 def cuda_request_descriptor(model, n_samples: int,
                             elements: list[str] | None,
                             budget=_DEFAULT_BUDGET,
-                            survey: bool = False) -> dict:
+                            survey: bool = False, resilience=None) -> dict:
     """Content address of a ``discover_cuda`` request: model identity +
     seed + sample count + element restriction + sweep budget, laid out like
     the reference package's Pallas descriptor, so CUDA topologies are
     stored and served through the same ``TopologyStore`` machinery as sim
     ones.  Measured values vary run to run (real timings); the *request* is
     what is addressed.  The budget defaults to the backend's default
-    (``SweepBudget()``), matching ``discover_cuda``."""
+    (``SweepBudget()``), matching ``discover_cuda``.  ``resilience`` keys
+    in only through ``Resilience.descriptor_entry`` (statistical knobs),
+    exactly as on the sim descriptor."""
     if budget is _DEFAULT_BUDGET:
         budget = default_sweep_budget()
     d = {
@@ -181,21 +194,12 @@ def cuda_request_descriptor(model, n_samples: int,
         "elements": sorted(elements) if elements else None,
         "budget": _budget_descriptor(budget),
     }
+    res_entry = None if resilience is None else resilience.descriptor_entry()
+    if res_entry is not None:
+        d["resilience"] = res_entry
     if survey:
         d["survey"] = True      # keyed apart from full runs (see sim twin)
     return d
-
-
-def _refuse_unported(*, resilience=None, parallel=None) -> None:
-    """Raise for an option whose module is not part of the port yet."""
-    missing = [(resilience is not None, "resilience",
-                "engine/store.py checkpoint/resume and errors.Resilience "
-                "retries"),
-               (parallel is not None, "parallel", "engine/parallel.py")]
-    for given, option, module in missing:
-        if given:
-            raise NotImplementedError(
-                f"{option}: {module} is not ported to repro_torch yet")
 
 
 # --------------------------------------------------------------------------
@@ -436,7 +440,10 @@ class DiscoveryRequest:
 
     Everything else — store lookup/persist, timings, sample-cache preload,
     engine invocation, topology assembly — is the shared ``discover()``
-    implementation.
+    implementation.  Registry-driven backends (sim, cuda) leave ``plan``
+    unset and get the full (space x family) engine; a backend with a
+    bespoke probe set provides a ``plan`` building scheduler work items and
+    an ``assemble`` turning the schedule result into a ``Topology``.
     """
 
     descriptor: dict
@@ -454,6 +461,21 @@ class DiscoveryRequest:
     # sound only for runners whose sample streams are request-keyed (sim);
     # measuring backends (cuda) must re-measure instead.
     preload_samples: bool = True
+    # Fault-tolerance policy (errors.Resilience): per-item transient retry
+    # with graceful degradation, plus — with a store and preloadable
+    # samples — periodic checkpointing so an interrupted discovery resumes
+    # without re-probing persisted rows.  The policy's statistical knobs
+    # must already be reflected in ``descriptor`` (the wrappers handle
+    # this); retry knobs deliberately are not (they never change what a
+    # clean run measures).
+    resilience: object | None = None
+    # Multiprocess probe execution (engine/parallel.ParallelConfig): shard
+    # the batched capability calls across the persistent worker-process
+    # pool.  Deliberately EXCLUDED from the request descriptor — pooled
+    # and inline runs are bit-identical (request-keyed sampling), so they
+    # must share a content address.  Runners without a RunnerSpec (the
+    # CudaRunner, and boxes under the effective-core floor) stay inline.
+    parallel: object | None = None
     # Adaptive sweep planning (engine/planner.SweepBudget): None keeps the
     # dense sweeps — the equivalence oracle.  The budget must already be
     # reflected in ``descriptor`` (the wrappers handle this).
@@ -469,6 +491,8 @@ class DiscoveryRequest:
     # usable sibling — silently degrades to the full discovery, so a survey
     # can be slower but never wrong.  Requires a ``store``.
     survey: bool = False
+    plan: Callable[[object], list] | None = None
+    assemble: Callable[[object, DiscoveryTimings], Topology] | None = None
 
 
 def discover(request: DiscoveryRequest, *, store=None, refresh: bool = False,
@@ -487,6 +511,8 @@ def discover(request: DiscoveryRequest, *, store=None, refresh: bool = False,
     store lock).  Ignored without a ``store``.
     """
     from .engine import SampleCache, run_probes
+    from .engine.cache import CachingRunner
+    from .engine.scheduler import run_work_items
 
     key = None
     if store is not None:
@@ -513,22 +539,74 @@ def discover(request: DiscoveryRequest, *, store=None, refresh: bool = False,
         persisted = store.load_samples(key)
         if persisted:
             cache.preload(persisted)
+        elif request.resilience is not None:
+            # Resume path: an interrupted resilient discovery left a
+            # checkpoint (sample cache + completed families) instead of a
+            # final topology.  Preloading it re-serves every persisted
+            # probe row from disk, so the rerun re-probes zero of them.
+            ckpt = store.load_checkpoint(key)
+            if ckpt is not None:
+                entries, families = ckpt
+                cache.preload(entries)
+                timings.meta["resume"] = {"rows": len(entries),
+                                          "families_done": len(families)}
 
     runner = request.make_runner()
-    eng = run_probes(runner, n_samples=request.n_samples,
-                     elements=request.elements,
-                     device_families=request.device_families,
-                     max_workers=request.max_workers, timings=timings,
-                     cache=cache, budget=request.budget, fuse=request.fuse)
-    timings.meta["cache"] = eng.cache_stats
-    timings.meta["planned"] = request.budget is not None
-    if eng.fusion is not None:
-        timings.meta["fusion"] = eng.fusion
-    topo = _assemble_engine_topology(request, runner, eng, timings)
+    checkpoint = None
+    if (store is not None and request.resilience is not None
+            and request.preload_samples):
+        # Checkpoint write-through: after each completed work item, persist
+        # the sample cache + completed-item manifest under the request key.
+        # Gated on ``preload_samples`` because resume re-serves recorded
+        # rows — only sound for request-keyed (replayable) runners, so a
+        # CUDA discovery never checkpoints.
+        done_items: list[str] = []
+
+        def checkpoint(item_key):
+            # Engine items are keyed (space, family); a plan's may be a
+            # plain string, which is its own name (the reference package
+            # joins its characters).
+            done_items.append(item_key if isinstance(item_key, str)
+                              else "/".join(map(str, item_key)))
+            store.put_checkpoint(key, cache.snapshot(), done_items)
+
+    if request.plan is None:
+        eng = run_probes(runner, n_samples=request.n_samples,
+                         elements=request.elements,
+                         device_families=request.device_families,
+                         max_workers=request.max_workers, timings=timings,
+                         cache=cache, budget=request.budget,
+                         fuse=request.fuse, resilience=request.resilience,
+                         checkpoint=checkpoint, parallel=request.parallel)
+        timings.meta["cache"] = eng.cache_stats
+        timings.meta["planned"] = request.budget is not None
+        if eng.fusion is not None:
+            timings.meta["fusion"] = eng.fusion
+        if eng.degraded or eng.retries:
+            timings.meta["resilience"] = {
+                "retries": eng.retries,
+                "degraded": [d.key for d in eng.degraded]}
+        topo = _assemble_engine_topology(request, runner, eng, timings)
+    else:
+        from .engine.parallel import maybe_parallel_runner
+
+        cached = CachingRunner(
+            maybe_parallel_runner(runner, request.parallel), cache=cache)
+        sched = run_work_items(request.plan(cached),
+                               max_workers=request.max_workers,
+                               timings=timings,
+                               resilience=request.resilience,
+                               on_item_done=checkpoint,
+                               parallel=request.parallel)
+        timings.meta["cache"] = cached.cache.stats()
+        topo = request.assemble(sched, timings)
 
     if store is not None:
         _store_persist(store, key, request.descriptor, topo, timings,
                        cache=cache)
+        if checkpoint is not None:
+            # The run completed and persisted: its checkpoint is spent.
+            store.clear_checkpoint(key)
         if gc_policy is not None:
             store.gc(max_entries=gc_policy.max_entries,
                      max_age_s=gc_policy.max_age_s)
@@ -740,10 +818,20 @@ def discover_sim(device, n_samples: int = 33,
     stored sibling topology with a planned spot-check subset instead of a
     full discovery, writing it through under this request's key with
     ``survey`` provenance; see ``DiscoveryRequest.survey``.
+
+    ``resilience`` (an ``errors.Resilience``) turns on fault tolerance:
+    transient probe failures are retried with capped backoff, families past
+    the budget degrade to ``"unknown"`` attributes instead of aborting,
+    and — with a ``store`` — the run checkpoints after every completed
+    work item so an interrupted discovery resumes without re-probing.
+
+    ``parallel`` (an ``engine.parallel.ParallelConfig``) shards batched
+    probe calls across the persistent worker-process pool — bit-identical
+    results (request-keyed sampling), so it shares the inline run's store
+    key; it is pure wall-clock, like ``fuse``.
     """
-    _refuse_unported(resilience=resilience, parallel=parallel)
     descriptor = sim_request_descriptor(device, n_samples, elements, budget,
-                                        survey=survey)
+                                        survey=survey, resilience=resilience)
 
     if not engine:
         key = None
@@ -769,7 +857,8 @@ def discover_sim(device, n_samples: int = 33,
         device_families=_device_families(device, elements),
         max_workers=max_workers,
         preload_samples=True,           # request-keyed streams: sound
-        budget=budget, fuse=fuse, survey=survey,
+        budget=budget, fuse=fuse, survey=survey, resilience=resilience,
+        parallel=parallel,
     )
     return discover(request, store=store, refresh=refresh,
                     gc_policy=gc_policy)
@@ -789,9 +878,10 @@ def discover_cuda(model=None, n_samples: int = 9,
     runner is the only moving part.  ``model`` is the configured
     ground-truth hierarchy (default ``make_cuda_model()``); pass ``runner``
     to reuse a warmed ``CudaRunner`` (built kernels, warmed launch shapes)
-    across discoveries, in which case its model and device are used.
-    ``device="cpu"`` runs the kernels' plain PyTorch versions instead, for
-    tests.
+    across discoveries, in which case its device is used, and its model
+    unless ``model`` is given (a wrapping runner such as ``ChaosRunner``
+    carries none).  ``device="cpu"`` runs the kernels' plain PyTorch
+    versions instead, for tests.
 
     Kernel launches are this backend's cost, so it defaults to the
     probe-volume optimizers, as the reference package's ``discover_pallas``
@@ -805,19 +895,27 @@ def discover_cuda(model=None, n_samples: int = 9,
     ``TopologyStore`` by ``cuda_request_descriptor``; ``store``,
     ``refresh``, ``gc_policy`` and ``survey`` behave as on
     ``discover_sim``.
+
+    ``resilience`` retries a probe that raised ``TransientRunnerError``
+    and degrades a family past the budget, as on ``discover_sim``; every
+    other error (a kernel that does not build or launch, a CUDA error)
+    propagates.  A CUDA discovery never checkpoints: its samples are
+    measured, so a resume could not re-serve them.  ``parallel`` is
+    accepted as on ``discover_sim`` and changes nothing: the
+    ``CudaRunner`` publishes no ``RunnerSpec`` (built kernels and a CUDA
+    context do not cross a process boundary, and timed launches must not
+    overlap), so execution stays inline and no worker is spawned.
     """
     from .probes.cuda_runner import CudaRunner, make_cuda_model
 
-    _refuse_unported(resilience=resilience, parallel=parallel)
     if budget is _DEFAULT_BUDGET:
         budget = default_sweep_budget()
-    if runner is not None:
-        model = runner.model
-    elif model is None:
-        model = make_cuda_model()
+    if model is None:
+        model = runner.model if runner is not None else make_cuda_model()
     request = DiscoveryRequest(
         descriptor=cuda_request_descriptor(model, n_samples, elements,
-                                           budget, survey=survey),
+                                           budget, survey=survey,
+                                           resilience=resilience),
         vendor=model.vendor, model=model.name,
         backend=f"cuda:{model.name}",
         make_runner=(lambda: runner) if runner is not None
@@ -827,7 +925,8 @@ def discover_cuda(model=None, n_samples: int = 9,
         max_workers=max_workers,
         clock_domain="model-cycles",    # chain-length units, timed end-to-end
         preload_samples=False,          # real measurements: always re-measure
-        budget=budget, fuse=fuse, survey=survey,
+        budget=budget, fuse=fuse, survey=survey, resilience=resilience,
+        parallel=parallel,
     )
     return discover(request, store=store, refresh=refresh,
                     gc_policy=gc_policy)
@@ -982,3 +1081,18 @@ def discover_sim_legacy(device, n_samples: int = 33,
     topo.notes.append(f"discovery wall time: {timings.total:.2f}s "
                       f"({ {k: round(v, 2) for k, v in timings.per_family.items()} })")
     return topo, timings
+
+
+def spec_from_topology(topo: Topology, base: HardwareSpec) -> HardwareSpec:
+    """Overlay discovered values onto a catalog record (paper §VI-A usage:
+    measured parameters feed the performance model)."""
+    import dataclasses
+
+    dm = topo.find_memory("DeviceMemory") or topo.find_memory("DRAM")
+    updates = {}
+    if dm is not None:
+        if dm.get("read_bw"):
+            updates["hbm_bandwidth"] = float(dm.get("read_bw")) * 1e9
+        if dm.get("size"):
+            updates["hbm_bytes"] = int(dm.get("size"))
+    return dataclasses.replace(base, **updates) if updates else base

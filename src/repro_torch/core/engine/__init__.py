@@ -2,10 +2,11 @@
 
 Decomposes MT4G-style discovery into a declarative probe registry, a
 dependency-aware concurrent scheduler, a keyed sample cache, batched
-runner calls, the adaptive sweep planner, cross-family fusion and the
-content-addressed topology store.  See ``engine.run_probes`` for the entry
-point and ``discover.discover`` for the entry point that assembles a
-``Topology`` from it.  The process pool is not part of this package yet.
+runner calls, the adaptive sweep planner, cross-family fusion, the
+content-addressed topology store and the worker-process pool
+(``engine.parallel``, imported on use).  See ``engine.run_probes`` for the
+entry point and ``discover.discover`` for the entry point that assembles a
+``Topology`` from it.
 """
 from .cache import CachingRunner, SampleCache
 from .engine import DEVICE_KEY, EngineResult, run_probes

@@ -15,7 +15,6 @@ sequential loop reports (a sum of item durations, matching the paper's
 """
 from __future__ import annotations
 
-import os
 import threading
 import time
 from concurrent.futures import FIRST_COMPLETED, ThreadPoolExecutor, wait
@@ -64,46 +63,6 @@ def check_items(items: list[WorkItem]) -> dict:
         if unknown:
             raise ValueError(f"{it.key}: unknown deps {unknown}")
     return by_key
-
-
-def _cgroup_cpu_quota() -> int | None:
-    """CPU quota in whole cores from the cgroup limits, or None.
-
-    ``os.cpu_count`` reports the host's cores; a containerized run with a
-    2-core quota on a 64-core host must not size pools for 64.  Reads the
-    v2 ``cpu.max`` (``"<quota> <period>"`` or ``"max <period>"``) and
-    falls back to the v1 ``cfs_quota_us``/``cfs_period_us`` pair.
-    """
-    try:
-        with open("/sys/fs/cgroup/cpu.max") as f:
-            quota_s, period_s = f.read().split()[:2]
-        if quota_s != "max" and int(period_s) > 0:
-            return max(1, int(int(quota_s) / int(period_s)))
-    except (OSError, ValueError):
-        pass
-    try:
-        with open("/sys/fs/cgroup/cpu/cpu.cfs_quota_us") as f:
-            quota = int(f.read())
-        with open("/sys/fs/cgroup/cpu/cpu.cfs_period_us") as f:
-            period = int(f.read())
-        if quota > 0 and period > 0:
-            return max(1, quota // period)
-    except (OSError, ValueError):
-        pass
-    return None
-
-
-def effective_cpu_count() -> int:
-    """Cores this process may actually use: affinity mask capped by any
-    cgroup CPU quota (``os.cpu_count`` ignores both)."""
-    try:
-        cores = len(os.sched_getaffinity(0))
-    except (AttributeError, OSError):
-        cores = os.cpu_count() or 1
-    quota = _cgroup_cpu_quota()
-    if quota is not None:
-        cores = min(cores, quota)
-    return max(1, cores)
 
 
 def run_work_items(items: list[WorkItem], *, max_workers: int | None = None,
@@ -204,6 +163,8 @@ def run_work_items(items: list[WorkItem], *, max_workers: int | None = None,
             # processes, so coordinator threads would only add GIL traffic.
             max_workers = 0
         else:
+            from .parallel import effective_cpu_count
+
             # numpy probe work mostly holds the GIL: a pool only pays off
             # when there are spare cores for the pieces that do release it.
             # Effective cores, not os.cpu_count(): a cgroup CPU quota or

@@ -29,12 +29,17 @@ from typing import Protocol, runtime_checkable
 import numpy as np
 
 __all__ = ["ProbeRunner", "SpaceInfo", "SimRunner", "sattolo_cycle",
-           "random_cycle", "CURRENT_FAMILY"]
+           "random_cycle", "build_sim_runner", "CURRENT_FAMILY"]
 
 # The probe family (its ``DiscoveryTimings`` bucket) whose work item the
 # engine's scheduler is running in this context; "" outside one.  Runners
 # that log what they time read it to file each entry under its family.
 CURRENT_FAMILY: ContextVar[str] = ContextVar("probe_family", default="")
+
+
+def build_sim_runner(device) -> "SimRunner":
+    """Rebuild a ``SimRunner`` from its device model (pool-worker side)."""
+    return SimRunner(device)
 
 
 @dataclass(frozen=True)
@@ -206,3 +211,11 @@ class SimRunner:
     @property
     def cores_per_sm(self) -> int:
         return self.device.cores_per_sm
+
+    def runner_spec(self):
+        """Rebuild recipe for pool workers: the device model is the whole
+        state (request-keyed streams live in the device seed), so a worker
+        rebuilt from it is bit-identical to this runner."""
+        from ..engine.parallel import RunnerSpec
+
+        return RunnerSpec(build_sim_runner, (self.device,))

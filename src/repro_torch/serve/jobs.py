@@ -141,7 +141,7 @@ def _parse_elements(raw):
     return list(raw)
 
 
-def resolve_discovery(params: dict, store):
+def resolve_discovery(params: dict, store, parallel=None):
     """Validate a wire-format discovery request and bind it to the store.
 
     Returns ``(descriptor, key, run)`` where ``descriptor`` is the
@@ -152,6 +152,12 @@ def resolve_discovery(params: dict, store):
     ``(topology, timings)``.
 
     A ``"cuda"`` thunk holds ``CARD_LOCK`` while it runs.
+
+    ``parallel`` (an ``engine.parallel.ParallelConfig``, normally the
+    owning ``JobEngine``'s) threads multiprocess probe execution into the
+    run thunk.  It never appears in the descriptor: pooled and inline
+    runs are bit-identical, so they must share a request key.  A
+    ``"cuda"`` run takes it and stays inline (see ``discover_cuda``).
 
     Raises ``ValueError`` on any malformed field — the HTTP layer maps
     this to a 400 before anything is enqueued.
@@ -201,7 +207,8 @@ def resolve_discovery(params: dict, store):
 
         run = lambda: discover_sim(  # noqa: E731 — close over parsed args
             device, n_samples, elements, store=store, refresh=refresh,
-            budget=budget, gc_policy=gc_policy, survey=survey)
+            budget=budget, gc_policy=gc_policy, survey=survey,
+            parallel=parallel)
 
     else:                                                   # cuda
         from ..core.discover import discover_cuda
@@ -220,7 +227,7 @@ def resolve_discovery(params: dict, store):
                 return discover_cuda(
                     model, n_samples, elements, store=store,
                     refresh=refresh, budget=budget, gc_policy=gc_policy,
-                    survey=survey)
+                    survey=survey, parallel=parallel)
 
     return descriptor, request_key(descriptor), run
 
@@ -327,8 +334,13 @@ class JobEngine:
                  retryable: tuple = (TransientRunnerError,),
                  on_attempt: Callable | None = None,
                  sleep: Callable[[float], None] = time.sleep,
-                 max_history: int = 512):
+                 max_history: int = 512, parallel=None):
         self.store = store
+        # Multiprocess probe execution (engine/parallel.ParallelConfig):
+        # threaded into every discovery thunk this engine resolves.  All
+        # concurrent jobs share ONE process pool (the config-keyed global
+        # pool), so N remote discoveries never spawn N pools.
+        self.parallel = parallel
         self.workers = max(1, int(workers))
         self.max_retries = int(max_retries)
         self.default_timeout_s = default_timeout_s
@@ -394,7 +406,8 @@ class JobEngine:
         attached to it.  Raises ``ValueError`` on malformed params and
         ``QueueFullError`` when the bounded queue refuses the job.
         """
-        descriptor, key, run = resolve_discovery(params, self.store)
+        descriptor, key, run = resolve_discovery(params, self.store,
+                                                 parallel=self.parallel)
         with self._mutex:
             live = self._active.get(key)
             if live is not None and not live.terminal:

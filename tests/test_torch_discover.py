@@ -15,6 +15,9 @@
   processes, so they are held to the model's order of levels and to
   within a factor of two; the card holds them to 50 % (``chip_smoke.py``).
 """
+import multiprocessing
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -22,10 +25,17 @@ import torch
 from repro.core import discover_sim as ref_discover_sim
 from repro.core import make_h100_like as ref_h100
 from repro.core import make_mi210_like as ref_mi210
+from repro.core.errors import Resilience as RefResilience
 from repro.core.probes import make_pallas_model
 from repro_torch.core import (discover_cuda, discover_sim, make_h100_like,
                               make_mi210_like)
-from repro_torch.core.probes import CudaRunner, make_cuda_model
+from repro_torch.core import Resilience
+from repro_torch.core.engine import parallel as parallel_module
+from repro_torch.core.engine.parallel import (ParallelConfig,
+                                              get_global_pool,
+                                              shutdown_global_pools)
+from repro_torch.core.probes import (ChaosRunner, CudaRunner, FaultSchedule,
+                                     make_cuda_model)
 from repro_torch.kernels import ops
 
 N_SAMPLES = 9
@@ -156,23 +166,99 @@ def test_bandwidth_values_are_finite(discovery):
             assert np.isfinite(me.get(attr)) and me.get(attr) > 0
 
 
-UNPORTED = [
-    ({"resilience": object()}, "engine/store.py"),
-    ({"parallel": object()}, "engine/parallel.py"),
-]
+# ``resilience`` and ``parallel`` on both entries.  Sim: bit for bit with
+# the reference's same request (a hardened policy; a pool of two workers,
+# on mi210, whose CU-sharing rows cross the pool too).  CUDA on the CPU,
+# VMEM alone to keep it short: transient faults retried to the ground
+# truth with nothing degraded, under the reference's descriptor layout; and
+# the pool config accepted and ignored — nothing spawned, the same launches
+# as the inline run.
+HARDENED = dict(max_retries=3, mad_k=5.0, resample_band=0.02,
+                resample_extra=9)
+PCFG = ParallelConfig(workers=2, min_rows_per_shard=1, call_timeout_s=30.0)
 
 
-@pytest.mark.parametrize("entry", ["sim", "cuda"])
-@pytest.mark.parametrize("option,module", UNPORTED,
-                         ids=[next(iter(o)) for o, _ in UNPORTED])
-def test_unported_options_raise(entry, option, module):
-    ops.reset_launches()
-    with pytest.raises(NotImplementedError, match=module):
-        if entry == "sim":
-            discover_sim(make_h100_like(), n_samples=N_SAMPLES, **option)
-        else:
-            discover_cuda(device="cpu", **option)
-    assert all(fn.launches == 0 for fn in ops.WRAPPERS)
+def _vmem_discovery(**kw):
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        ops.reset_launches()
+        topo, timings = discover_cuda(make_cuda_model(), n_samples=N_SAMPLES,
+                                      elements=["VMEM"], **kw)
+        return topo, timings, [fn.launches for fn in ops.WRAPPERS]
+    finally:
+        torch.set_num_threads(threads)
+
+
+def test_sim_resilience_equals_reference():
+    got, t = discover_sim(make_h100_like(), n_samples=N_SAMPLES,
+                          resilience=Resilience(**HARDENED,
+                                                sleep=lambda _s: None))
+    want, wt = ref_discover_sim(ref_h100(), n_samples=N_SAMPLES,
+                                resilience=RefResilience(
+                                    **HARDENED, sleep=lambda _s: None))
+    assert _without_notes(got) == _without_notes(want)
+    assert t.meta["cache"] == wt.meta["cache"]
+
+
+def test_sim_parallel_equals_reference():
+    try:
+        got, t = discover_sim(make_mi210_like(), n_samples=N_SAMPLES,
+                              parallel=PCFG)
+        assert get_global_pool(PCFG).respawns == 0
+    finally:
+        shutdown_global_pools()
+    if os.path.isdir("/dev/shm"):
+        assert not [n for n in os.listdir("/dev/shm")
+                    if n.startswith(f"mt4g{os.getpid()}p")]
+    want, wt = ref_discover_sim(ref_mi210(), n_samples=N_SAMPLES)
+    assert _without_notes(got) == _without_notes(want)
+    assert t.meta["cache"] == wt.meta["cache"]
+
+
+def test_cuda_resilience_retries_to_ground_truth():
+    from repro.core.discover import pallas_request_descriptor
+    from repro_torch.core.discover import cuda_request_descriptor
+
+    gt = make_cuda_model().ground_truth()
+    policy = Resilience(**HARDENED, sleep=lambda _s: None)
+    for attempt in range(2):
+        # seed 2 faults the first DeviceMemory read-bandwidth call, so an
+        # item retries whatever rows the measured sweeps ask for
+        chaos = ChaosRunner(CudaRunner(device="cpu", base_steps=BASE_STEPS),
+                            FaultSchedule(seed=2, transient_rate=0.2,
+                                          batch_fault_rate=0.2))
+        topo, timings, launches = _vmem_discovery(runner=chaos,
+                                                  resilience=policy)
+        assert chaos.faults_injected > 0 and all(n > 0 for n in launches[2:])
+        assert timings.meta["resilience"]["retries"] >= 1
+        assert timings.meta["resilience"]["degraded"] == []
+        if abs(topo.find_memory("VMEM").get("size")
+               - gt["VMEM"]["size"]) <= 64:
+            break
+    else:
+        pytest.fail("VMEM size missed the ground truth twice")
+    got = cuda_request_descriptor(make_cuda_model(), N_SAMPLES, ["VMEM"],
+                                  resilience=policy)
+    want = pallas_request_descriptor(
+        make_pallas_model(), N_SAMPLES, ["VMEM"],
+        resilience=RefResilience(**HARDENED))
+    assert got["resilience"] == want["resilience"] == {
+        "mad_k": 5.0, "resample_band": 0.02, "resample_extra": 9}
+    assert set(got) == set(want)
+
+
+def test_cuda_parallel_stays_inline():
+    children = set(multiprocessing.active_children())
+    _, _, pooled = _vmem_discovery(
+        runner=CudaRunner(device="cpu", base_steps=BASE_STEPS), budget=None,
+        fuse=False, parallel=PCFG)
+    assert not parallel_module._POOLS
+    assert set(multiprocessing.active_children()) == children
+    _, _, inline = _vmem_discovery(
+        runner=CudaRunner(device="cpu", base_steps=BASE_STEPS), budget=None,
+        fuse=False)
+    assert pooled == inline and all(n > 0 for n in pooled[2:])
 
 
 def test_cuda_runner_defaults_to_the_card():
