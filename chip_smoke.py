@@ -81,6 +81,25 @@ to a plain version):
              ``TopologyStore``, with no persisted row probed again.  Each
              card run prints faults, retries, degraded families, launches
              and wall beside the clean planned run's;
+3d. host    — the host chase (``core/probes/csrc/host_chase.c``) built by
+             the host C compiler into ``build/host/`` (compiler, flags and
+             seconds printed); ``discover_host()`` at its defaults (128 MiB,
+             9 samples, quick) on this machine's CPU through a
+             ``TopologyStore``: wall, per-family seconds, the host-cache
+             size and the bytes its rows touched (4 size / 4096), both
+             latencies and both bandwidths beside the CPU's model and
+             caches (``lscpu``, sysfs or ``getconf``; printed, not
+             compared); both
+             elements present, the DRAM latency above the host-cache one
+             (measured again on an inversion, up to five runs, as the
+             reference's test of that order), both bandwidths positive, and its
+             repeat a store hit with no chase call; ``{"backend": "host",
+             "max_bytes": 8 MiB}`` over ``TopologyHTTPServer``, with the
+             direct run's attributes, and its repeat from the store;
+             ``find_link_adjacency`` on ``SimPod`` 4x4 and 4x8 held to the
+             torus's links; ``measure_collective`` for each op at axis
+             sizes 1 and 4, held to the analytic models (one card: no live
+             path);
 4. llm kernels — ``ops.mha`` (the tensor-core kernels for bf16 at head
              dims 16, 32, 64, 80, 96, 100, 128 and 256, the CUDA-core ones
              for f32 at 3, 16, 64, 78, 80, 128 and 256, causal and full,
@@ -1487,6 +1506,236 @@ def phase_resilience(runner, clean: dict, clean_wall: float) -> dict:
 
 
 # --------------------------------------------------------------------------
+# Phase 3d: host discovery, link adjacency and the collective models
+# --------------------------------------------------------------------------
+HOST_JOB = {"backend": "host", "max_bytes": 8 * MIB}
+# Host discoveries until one shows the DRAM latency above the host-cache
+# one.  "DRAM" is a 64 KiB chase (an L2 on most hosts) against a 1 KiB one,
+# so the two are a few ns apart and a shared host can invert a run; the
+# reference's own test of this ordering passes when any of five rounds
+# shows it (``tests/test_host_probe.py``), and so does this gate.
+HOST_ATTEMPTS = 5
+# Simulated tori whose links find_link_adjacency must recover exactly.
+PODS = ((4, 4, 3), (4, 8, 5))
+# Collective models: a 64 MiB payload over one NVLink 4 direction of an
+# H100 SXM (18 links x 25 GB/s a direction, NVIDIA data sheet).
+COLLECTIVE_BYTES = 64 * MIB
+NVLINK_BW = 450e9
+
+
+def host_cpu() -> dict:
+    """The host CPU's model (``lscpu``, else ``/proc/cpuinfo``) and its
+    caches (cpu0's in sysfs, else ``lscpu``'s cache lines, else
+    ``getconf``), printed beside the host numbers for comparison only."""
+    import glob
+
+    def run(cmd) -> str:
+        try:
+            return subprocess.run(cmd, capture_output=True, text=True,
+                                  timeout=30).stdout
+        except OSError:
+            return ""
+
+    lscpu = run(["lscpu"]).splitlines()
+    fields = {key.strip(): value.strip() for key, _, value in
+              (line.partition(":") for line in lscpu)}
+    model = fields.get("Model name")
+    if model is None:
+        try:
+            with open("/proc/cpuinfo") as f:
+                model = next((line.split(":", 1)[1].strip() for line in f
+                              if line.startswith("model name")), "unknown")
+        except OSError:
+            model = "unknown"
+    # a virtualised host may report no name; CPUID's vendor, family and
+    # model remain
+    ident = " ".join(f"{key} {fields[key]}" for key in
+                     ("Vendor ID", "CPU family", "Model", "BogoMIPS")
+                     if key in fields)
+    if ident:
+        model = f"{model} ({ident})"
+    caches = []
+    for index in sorted(glob.glob("/sys/devices/system/cpu/cpu0/cache/"
+                                  "index*")):
+        try:
+            caches.append(" ".join(
+                open(os.path.join(index, name)).read().strip()
+                for name in ("level", "type", "size")))
+        except OSError:
+            continue
+    source = "sysfs cpu0"
+    if not caches:
+        source = "lscpu"
+        caches = [" ".join(line.split()) for line in lscpu
+                  if re.match(r"L\d\w* cache:", line)]
+    if not caches:
+        source = "getconf"
+        caches = [" ".join(line.split())
+                  for line in run(["getconf", "-a"]).splitlines()
+                  if "CACHE_SIZE" in line
+                  and line.split()[1:] not in ([], ["0"])]
+    return {"model": model, "caches": caches, "source": source,
+            "cpus": os.cpu_count()}
+
+
+def _host_report(topo) -> dict:
+    """Element -> {attribute: (unit, provenance)}, the host-cache size left
+    out: whether the sweep finds one depends on the host."""
+    return {me.name: {k: (a.unit, a.provenance) for k, a in me.attrs.items()
+                      if (me.name, k) != ("host-cache", "size")}
+            for me in topo.memory}
+
+
+def phase_host() -> None:
+    """Host discovery on the card machine's CPU: the compiled chase built,
+    ``discover_host()`` at its defaults (128 MiB, 9 samples, quick) through
+    a ``TopologyStore`` and its repeat served from the store with no probe,
+    a ``"host"`` job at 8 MiB over the HTTP service and its repeat from the
+    store; then ``find_link_adjacency`` on simulated tori and
+    ``measure_collective`` at axis sizes 1 and 4, analytic on one card."""
+    import importlib
+    import tempfile
+
+    from repro_torch.core import discover_host
+    from repro_torch.core.engine.store import TopologyStore
+    from repro_torch.core.probes import (HostRunner, SimPod,
+                                         find_link_adjacency,
+                                         measure_collective)
+    from repro_torch.core.probes import bandwidth as bandwidth_module
+    from repro_torch.core.probes.host_chase import build_host_chase
+    from repro_torch.core.topology import Topology
+    from repro_torch.serve import TopologyClient, TopologyHTTPServer
+
+    discover_module = importlib.import_module("repro_torch.core.discover")
+    built = build_host_chase()
+    print(f"[host] chase built by {built.compiler} {' '.join(built.flags)} "
+          f"in {built.seconds:.3f}s (0 when an earlier build was loaded): "
+          f"{os.path.relpath(built.path, HERE)}")
+    cpu = host_cpu()
+    print(f"[host] CPU {cpu['model']} ({cpu['cpus']} logical CPUs); caches "
+          f"({cpu['source']}, for comparison only) {cpu['caches']}")
+
+    probes = {"pchase": 0}
+
+    class CountingHostRunner(HostRunner):
+        def pchase(self, *args):
+            probes["pchase"] += 1
+            return super().pchase(*args)
+
+    def run(store):
+        probes["pchase"] = 0
+        t0 = time.perf_counter()
+        topo, timings = discover_host(store=store)
+        return topo, timings, time.perf_counter() - t0, probes["pchase"]
+
+    original = discover_module.HostRunner
+    discover_module.HostRunner = CountingHostRunner
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            for attempt in range(1, HOST_ATTEMPTS + 1):
+                store = TopologyStore(os.path.join(root, str(attempt)))
+                topo, timings, wall, calls = run(store)
+                cache, dram = (topo.find_memory("host-cache"),
+                               topo.find_memory("DRAM"))
+                check(cache is not None and dram is not None,
+                      f"discover_host: elements {topo.memory}")
+                size = cache.get("size")
+                ordered = dram.get("load_latency") > cache.get("load_latency")
+                print(f"[host] discover_host() (128 MiB, 9 samples, quick)"
+                      f" attempt {attempt}: wall "
+                      f"{wall:.4f}s; per family "
+                      f"{json.dumps(timings.per_family)}; chase calls "
+                      f"{calls}; probe rows {timings.probe_rows}; host-cache "
+                      f"size {size} B (its rows touched "
+                      f"{None if size is None else 4 * size // 4096} B); "
+                      f"latency host-cache {cache.get('load_latency')} ns, "
+                      f"DRAM {dram.get('load_latency')} ns; DRAM read "
+                      f"{dram.get('read_bw')} GB/s, write "
+                      f"{dram.get('write_bw')} GB/s")
+                if ordered:
+                    break
+                print("[host] DRAM latency not above the host-cache "
+                      "latency; measured again")
+            check(ordered, "discover_host: DRAM latency "
+                  f"{dram.get('load_latency')} ns not above host-cache "
+                  f"{cache.get('load_latency')} ns in {HOST_ATTEMPTS} runs")
+            check(dram.get("read_bw") > 0 and dram.get("write_bw") > 0,
+                  f"discover_host: bandwidths {dram.attrs}")
+            check(calls > 0 and timings.probe_rows > 0,
+                  f"discover_host probed nothing: {calls} chase calls")
+            again, again_t, again_wall, again_calls = run(store)
+            print(f"[host] repeat through the store: {again_wall:.4f}s, "
+                  f"chase calls {again_calls}, store hit "
+                  f"{'cache' not in again_t.meta}")
+            check(again_calls == 0 and "cache" not in again_t.meta
+                  and again.to_json() == topo.to_json(),
+                  "the repeated host discovery was not a store hit")
+    finally:
+        discover_module.HostRunner = original
+
+    with tempfile.TemporaryDirectory() as root:
+        server = TopologyHTTPServer(TopologyStore(root), host="127.0.0.1",
+                                    port=0).start()
+        try:
+            client = TopologyClient(server.url)
+            answers = []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                job = client.submit_and_wait(HOST_JOB, timeout_s=300,
+                                             poll_s=0.05)
+                wall = time.perf_counter() - t0
+                check(job["state"] == "done",
+                      f"host job: {job['state']} ({job['error']})")
+                doc = client.topology(job["key"])["topology"]
+                answers.append((job, doc))
+                print(f"[host] {json.dumps(HOST_JOB)} over HTTP: "
+                      f"{job['state']} in {wall:.4f}s; store_hit "
+                      f"{job['result']['store_hit']}; probe rows "
+                      f"{job['result']['probe_rows']}; DRAM.read_bw "
+                      f"{client.query(job['key'], 'DRAM.read_bw')['value']}"
+                      " GB/s")
+        finally:
+            server.stop()
+    (first, first_doc), (second, second_doc) = answers
+    check(_host_report(Topology.from_json(first_doc)) == _host_report(topo),
+          f"the host job's attributes {first_doc['memory']} differ from "
+          f"the direct run's")
+    check(not first["result"]["store_hit"] and second["result"]["store_hit"]
+          and second["key"] == first["key"] and second_doc == first_doc,
+          f"the repeated host job was not a store hit: {second['result']}")
+
+    for rows, cols, seed in PODS:
+        pod = SimPod(rows=rows, cols=cols, seed=seed)
+        res = find_link_adjacency(pod, n_samples=9)
+        right = sum(res.neighbors.get(c) == pod.neighbors(c)
+                    for c in range(pod.n_chips))
+        print(f"[host] find_link_adjacency SimPod {rows}x{cols} (seed "
+              f"{seed}): found {res.found}, threshold "
+              f"{res.threshold_us:.4f} us, {right}/{pod.n_chips} chips' "
+              f"links equal to the torus's")
+        check(res.found and right == pod.n_chips,
+              f"SimPod {rows}x{cols}: {res.neighbors}")
+
+    formulas = {
+        "all_reduce": lambda n: bandwidth_module.ring_all_reduce_time(
+            COLLECTIVE_BYTES, n, NVLINK_BW),
+        "all_gather": lambda n: bandwidth_module.ring_all_gather_time(
+            COLLECTIVE_BYTES // n, n, NVLINK_BW),
+        "all_to_all": lambda n: bandwidth_module.all_to_all_time(
+            COLLECTIVE_BYTES, n, NVLINK_BW)}
+    for op, formula in formulas.items():
+        for axis in (1, 4):
+            live = bandwidth_module.live_collective(axis)
+            est = measure_collective(op, COLLECTIVE_BYTES, axis, NVLINK_BW)
+            print(f"[host] measure_collective({op}, 64 MiB, axis {axis}) on "
+                  f"{torch.cuda.device_count()} card(s): "
+                  f"{'live' if live else 'analytic'} path, "
+                  f"{est.seconds:.6e}s, {est.effective_bw / 1e9:.4f} GB/s")
+            check(not live and est.seconds == max(formula(axis), 1e-12),
+                  f"measure_collective({op}, axis {axis}): {est}")
+
+
+# --------------------------------------------------------------------------
 # Phase 4: the model kernels and the single-chain chase
 # --------------------------------------------------------------------------
 # The serve phase's shapes: a wave of 4 prompts of 512 tokens; qwen3-14b's
@@ -2183,6 +2432,7 @@ def main() -> int:
     launches, clean_wall, runner = phase_discover(floor)
     phase_service()
     resilient = phase_resilience(runner, dict(launches), clean_wall)
+    phase_host()
     del runner
     rows.update(phase_llm_kernels(floor))
     launches.update(phase_serve())      # pchase, mha_d256: serve-run counts

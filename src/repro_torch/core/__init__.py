@@ -8,7 +8,8 @@ from .simulate import (SIM_DEVICES, SimDevice, SimLevel, device_from_dict,
                        make_h100_like, make_mi210_like, make_v5e_like)
 from .discover import (DiscoveryRequest, DiscoveryTimings,
                        default_sweep_budget, discover, discover_cuda,
-                       discover_sim, discover_sim_legacy, spec_from_topology)
+                       discover_host, discover_sim, discover_sim_legacy,
+                       spec_from_topology)
 from .engine.fusion import FusionDispatcher, run_fused
 from .engine.planner import SweepBudget
 from .engine.store import GcPolicy, TopologyStore, request_key
@@ -21,7 +22,8 @@ __all__ = [
     "SIM_DEVICES", "SimDevice", "SimLevel", "device_from_dict",
     "make_h100_like", "make_mi210_like", "make_v5e_like",
     "DiscoveryRequest", "DiscoveryTimings", "discover", "discover_cuda",
-    "discover_sim", "discover_sim_legacy", "default_sweep_budget",
+    "discover_host", "discover_sim", "discover_sim_legacy",
+    "default_sweep_budget",
     "spec_from_topology",
     "SweepBudget", "GcPolicy", "TopologyStore", "request_key",
     "FusionDispatcher", "run_fused",

@@ -15,13 +15,16 @@ backend-specific:
 
 * ``discover_sim``  — a ``SimRunner`` over a virtual device with known
   ground truth (the validation backend);
+* ``discover_host`` — real measurements of this machine's CPU through a
+  custom work-item plan (the hierarchy has one probeable space, so it
+  skips the registry); the one entry point that touches no card;
 * ``discover_cuda`` — the ``CudaRunner``: hand-written CUDA C++ probe
   kernels (``repro_torch.kernels``) on the card, timed end-to-end
   against a configured ground-truth hierarchy.  Like the reference
   package's ``discover_pallas`` it plans its sweeps (``SweepBudget()``)
   and fuses probe rounds across families by default.
 
-A third path, ``discover_sim_legacy`` (also ``discover_sim(engine=False)``)
+A fourth path, ``discover_sim_legacy`` (also ``discover_sim(engine=False)``)
 keeps the paper-faithful sequential loop: one probe at a time, exactly as
 the paper's tool runs them — the reference implementation the engine is
 held to.
@@ -59,16 +62,17 @@ from .probes.amount import (align_segments, find_amount, find_cu_sharing,
 from .probes.bandwidth import measure_bandwidth
 from .probes.latency import measure_latency
 from .probes.linesize import find_fetch_granularity, find_line_size
-from .probes.runners import SimRunner
+from .probes.runners import HostRunner, SimRunner
 from .probes.size import find_size
 from .topology import (PROVENANCE_API, PROVENANCE_BENCHMARK,
                        PROVENANCE_DEGRADED, ComputeElement, MemoryElement,
                        Topology)
 
 __all__ = ["DiscoveryTimings", "DiscoveryRequest", "discover",
-           "discover_sim", "discover_sim_legacy", "discover_cuda",
-           "default_sweep_budget", "sim_request_descriptor",
-           "cuda_request_descriptor", "spec_from_topology"]
+           "discover_sim", "discover_sim_legacy", "discover_host",
+           "discover_cuda", "default_sweep_budget", "sim_request_descriptor",
+           "host_request_descriptor", "cuda_request_descriptor",
+           "spec_from_topology"]
 
 KIB = 1024
 
@@ -167,6 +171,16 @@ def sim_request_descriptor(device, n_samples: int,
         # on, so pre-survey stores keep their keys.
         d["survey"] = True
     return d
+
+
+def host_request_descriptor(max_bytes: int, n_samples: int,
+                            quick: bool) -> dict:
+    """Content address of a ``discover_host`` request: sweep ceiling,
+    sample count, and the quick-mode flag are all that shape the result
+    (the host hierarchy itself has one probeable space).  Equal to the
+    reference package's descriptor of the same request."""
+    return {"kind": "discover_host", "max_bytes": int(max_bytes),
+            "n_samples": int(n_samples), "quick": bool(quick)}
 
 
 def cuda_request_descriptor(model, n_samples: int,
@@ -441,8 +455,8 @@ class DiscoveryRequest:
     Everything else — store lookup/persist, timings, sample-cache preload,
     engine invocation, topology assembly — is the shared ``discover()``
     implementation.  Registry-driven backends (sim, cuda) leave ``plan``
-    unset and get the full (space x family) engine; a backend with a
-    bespoke probe set provides a ``plan`` building scheduler work items and
+    unset and get the full (space x family) engine; backends with a bespoke
+    probe set (host) provide a ``plan`` building scheduler work items and
     an ``assemble`` turning the schedule result into a ``Topology``.
     """
 
@@ -459,7 +473,7 @@ class DiscoveryRequest:
     cu_space: str = "sL1d"            # the space CU-sharing groups attach to
     # Preloading persisted samples re-serves *recorded* probe rows.  That is
     # sound only for runners whose sample streams are request-keyed (sim);
-    # measuring backends (cuda) must re-measure instead.
+    # measuring backends (host, cuda) must re-measure instead.
     preload_samples: bool = True
     # Fault-tolerance policy (errors.Resilience): per-item transient retry
     # with graceful degradation, plus — with a store and preloadable
@@ -927,6 +941,97 @@ def discover_cuda(model=None, n_samples: int = 9,
         preload_samples=False,          # real measurements: always re-measure
         budget=budget, fuse=fuse, survey=survey, resilience=resilience,
         parallel=parallel,
+    )
+    return discover(request, store=store, refresh=refresh,
+                    gc_policy=gc_policy)
+
+
+# --------------------------------------------------------------------------
+# Backend wrappers: this machine's CPU hierarchy
+# --------------------------------------------------------------------------
+def discover_host(max_bytes: int = 128 * 1024**2, n_samples: int = 9,
+                  quick: bool = True, *, store=None, refresh: bool = False,
+                  gc_policy=None, parallel=None
+                  ) -> tuple[Topology, DiscoveryTimings]:
+    """Live discovery of this machine's CPU hierarchy (real measurements).
+
+    It measures the host by definition: the one entry point of the port
+    that touches no card and no CUDA.  The chase is a small C loop built
+    by the host compiler at first use (``probes/host_chase.py``); a missing
+    compiler raises.
+
+    The host hierarchy has one probeable space, so instead of the registry
+    it hands the unified core a small custom work-item plan (size ∥
+    latencies ∥ bandwidths, all independent on real hardware) — sharing the
+    same store, caching, scheduling, and timing machinery as the other
+    backends.  ``store`` works as in ``discover()`` — host measurements are
+    slow and real, so serving a prior run of the same request from the
+    store is the common production path; ``refresh=True`` forces a
+    re-measure.  ``parallel`` shards the size sweep's batched rows across
+    the worker-process pool (each worker rebuilds the runner from its
+    ``RunnerSpec``); pooled rows are real measurements too, so they are
+    statistically, not bit-for-bit, the inline rows.
+    """
+    from .engine import WorkItem
+
+    def plan(runner):
+        return [
+            WorkItem(key="size", family="size", fn=lambda _r: find_size(
+                runner, "host-cache", lo=8 * KIB, step=4 * KIB,
+                n_samples=n_samples, max_bytes=max_bytes, max_points=24,
+                max_widenings=1, batched=True)),
+            WorkItem(key="lat_small", family="latency", fn=lambda _r:
+                     measure_latency(runner, "host-cache",
+                                     fetch_granularity=64,
+                                     n_samples=n_samples, array_factor=256)),
+            WorkItem(key="lat_big", family="latency", fn=lambda _r:
+                     measure_latency(runner, "host-cache",
+                                     fetch_granularity=4096,
+                                     n_samples=n_samples,
+                                     array_factor=max_bytes // 4096 // 2)),
+            WorkItem(key="bw_read", family="bandwidth",
+                     fn=lambda _r: runner.bandwidth("DRAM", "read")),
+            WorkItem(key="bw_write", family="bandwidth",
+                     fn=lambda _r: runner.bandwidth("DRAM", "write")),
+        ]
+
+    def assemble(sched, timings):
+        topo = Topology(vendor="host", model="cpu", backend="cpu")
+        me = MemoryElement("host-cache", "cache", "host")
+        sr = sched.results["size"]
+        if sr.found:
+            me.set("size", sr.size, "B", PROVENANCE_BENCHMARK, sr.confidence)
+        me.set("load_latency", round(sched.results["lat_small"].mean, 2),
+               "ns", PROVENANCE_BENCHMARK)
+        topo.memory.append(me)
+
+        dram = MemoryElement("DRAM", "memory", "host")
+        dram.set("load_latency", round(sched.results["lat_big"].mean, 2),
+                 "ns", PROVENANCE_BENCHMARK)
+        dram.set("read_bw", round(sched.results["bw_read"] / 1e9, 2), "GB/s",
+                 PROVENANCE_BENCHMARK)
+        dram.set("write_bw", round(sched.results["bw_write"] / 1e9, 2),
+                 "GB/s", PROVENANCE_BENCHMARK)
+        topo.memory.append(dram)
+        # The reference package's note, word for word: a host topology reads
+        # the same from either package.
+        topo.notes.append("host runner: per-sample = mean ns/load of a "
+                          "jitted dependent chase (DESIGN.md adaptation "
+                          "note 1)")
+        return topo
+
+    request = DiscoveryRequest(
+        descriptor=host_request_descriptor(max_bytes, n_samples, quick),
+        vendor="host", model="cpu", backend="cpu",
+        make_runner=lambda: HostRunner(
+            max_bytes=max_bytes, iters=1 << 14 if quick else 1 << 16),
+        n_samples=n_samples,
+        # Real measurements are perturbed by co-running probes: keep the
+        # host schedule serial so timings stay trustworthy — the engine's
+        # value here is the shared orchestration, not parallelism.
+        max_workers=1,
+        preload_samples=False,          # real measurements: always re-measure
+        plan=plan, assemble=assemble, parallel=parallel,
     )
     return discover(request, store=store, refresh=refresh,
                     gc_policy=gc_policy)

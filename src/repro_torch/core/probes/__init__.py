@@ -2,11 +2,12 @@
 
 ``CudaRunner`` and ``make_cuda_model`` load on first use: their module
 imports ``torch``, and everything else here is numpy only, so a process
-pool's worker (``engine.parallel``) rebuilds sim and chaos runners without
-importing ``torch``.
+pool's worker (``engine.parallel``) rebuilds sim, chaos and host runners
+without importing ``torch``.  ``HostRunner.bandwidth`` and
+``measure_collective`` import it where they run.
 """
-from .runners import (ProbeRunner, SimRunner, SpaceInfo, random_cycle,
-                      sattolo_cycle)
+from .runners import (HostRunner, ProbeRunner, SimRunner, SpaceInfo,
+                      random_cycle, sattolo_cycle)
 from .chaos import ChaosRunner, FaultSchedule
 from .size import SizeResult, find_size
 from .latency import LatencyResult, measure_latency
@@ -14,18 +15,24 @@ from .linesize import (GranularityResult, LineSizeResult,
                        find_fetch_granularity, find_line_size, snap_pow2)
 from .amount import (AmountResult, CuSharingResult, SharingResult,
                      align_segments, find_amount, find_cu_sharing, find_sharing)
-from .bandwidth import BandwidthResult, measure_bandwidth
+from .bandwidth import (BandwidthResult, CollectiveEstimate, all_to_all_time,
+                        measure_bandwidth, measure_collective,
+                        ring_all_gather_time, ring_all_reduce_time)
+from .adjacency import AdjacencyResult, SimPod, find_link_adjacency
 
 __all__ = [
     "ChaosRunner", "FaultSchedule",
-    "CudaRunner", "ProbeRunner", "SimRunner", "SpaceInfo",
+    "CudaRunner", "HostRunner", "ProbeRunner", "SimRunner", "SpaceInfo",
     "make_cuda_model", "random_cycle", "sattolo_cycle",
     "SizeResult", "find_size", "LatencyResult", "measure_latency",
     "GranularityResult", "LineSizeResult", "find_fetch_granularity",
     "find_line_size", "snap_pow2",
     "AmountResult", "CuSharingResult", "SharingResult", "align_segments",
     "find_amount", "find_cu_sharing", "find_sharing",
-    "BandwidthResult", "measure_bandwidth",
+    "BandwidthResult", "CollectiveEstimate", "all_to_all_time",
+    "measure_bandwidth", "measure_collective", "ring_all_gather_time",
+    "ring_all_reduce_time",
+    "AdjacencyResult", "SimPod", "find_link_adjacency",
 ]
 
 

@@ -4,6 +4,9 @@ The probe *workflows* (size, latency, line size, amount, ...) are runner-
 agnostic — the same code drives:
 
 * ``SimRunner``   — virtual devices with ground truth (validation tables);
+* ``HostRunner``  — real measurements on this machine's CPU hierarchy using
+                    a compiled dependent-load chase (``host_chase.py``; the
+                    live-hardware sanity check);
 * ``CudaRunner``  — the hand-written CUDA probe kernels in
                     ``repro_torch.kernels``, timed end-to-end on the card
                     against a configured ground-truth hierarchy; lives in
@@ -16,20 +19,22 @@ identical either way.
 ``deterministic`` (class attribute) tells callers whether repeating a
 request returns bit-identical samples: true for the request-keyed simulated
 runners, false for runners whose samples are real wall-time measurements
-(Cuda).  The engine's caches are correctness-neutral only for deterministic
-runners; for measuring runners they are a documented trade-off (serve the
-first measurement) that discovery relies on anyway.
+(Host, Cuda).  The engine's caches are correctness-neutral only for
+deterministic runners; for measuring runners they are a documented
+trade-off (serve the first measurement) that discovery relies on anyway.
 """
 from __future__ import annotations
 
+import time
 from contextvars import ContextVar
 from dataclasses import dataclass
 from typing import Protocol, runtime_checkable
 
 import numpy as np
 
-__all__ = ["ProbeRunner", "SpaceInfo", "SimRunner", "sattolo_cycle",
-           "random_cycle", "build_sim_runner", "CURRENT_FAMILY"]
+__all__ = ["ProbeRunner", "SpaceInfo", "SimRunner", "HostRunner",
+           "sattolo_cycle", "random_cycle", "build_sim_runner",
+           "build_host_runner", "CURRENT_FAMILY"]
 
 # The probe family (its ``DiscoveryTimings`` bucket) whose work item the
 # engine's scheduler is running in this context; "" outside one.  Runners
@@ -40,6 +45,11 @@ CURRENT_FAMILY: ContextVar[str] = ContextVar("probe_family", default="")
 def build_sim_runner(device) -> "SimRunner":
     """Rebuild a ``SimRunner`` from its device model (pool-worker side)."""
     return SimRunner(device)
+
+
+def build_host_runner(max_bytes: int, iters: int, seed: int) -> "HostRunner":
+    """Rebuild a ``HostRunner`` from its config scalars (pool-worker side)."""
+    return HostRunner(max_bytes=max_bytes, iters=iters, seed=seed)
 
 
 @dataclass(frozen=True)
@@ -219,3 +229,124 @@ class SimRunner:
         from ..engine.parallel import RunnerSpec
 
         return RunnerSpec(build_sim_runner, (self.device,))
+
+
+# --------------------------------------------------------------------------
+# Host (real CPU) runner
+# --------------------------------------------------------------------------
+class HostRunner:
+    """Real p-chase measurements against this machine's cache hierarchy.
+
+    Per-load timing at ns resolution is not available from Python, so each
+    "sample" is the mean ns/load of a compiled dependent-load loop
+    (``host_chase.py``; warm, single cycle), and the probe distribution is
+    built across ``n_samples`` repetitions.  The chase buffers are the
+    reference package's: the same ``sattolo_cycle`` drawn from the same
+    ``np.random.default_rng(seed)`` in the same order.
+    """
+
+    ELEM_BYTES = 4  # int32 chase indices
+    deterministic = False    # samples are real wall-time measurements
+
+    def __init__(self, max_bytes: int = 256 * 1024**2, iters: int = 1 << 15,
+                 seed: int = 0):
+        self.max_bytes = max_bytes
+        self.iters = iters
+        self.seed = seed
+        self._rng = np.random.default_rng(seed)
+
+    def spaces(self) -> list[SpaceInfo]:
+        return [SpaceInfo(
+            name="host-cache", scope="host", kind="cache",
+            max_bytes=self.max_bytes,
+            supports_cold=False, supports_amount=False, supports_sharing=False,
+        )]
+
+    # ------------------------------------------------------------- chase
+    def pchase(self, space, array_bytes, stride, n_samples):
+        del space
+        from .host_chase import load_host_chase
+
+        stride_elems = max(stride // self.ELEM_BYTES, 1)
+        n = max(array_bytes // self.ELEM_BYTES // stride_elems, 4)
+        # Random single cycle over n dense int32 slots, as the reference
+        # package builds it: the chase touches 4 * n = 4 * array_bytes /
+        # stride bytes, not ``array_bytes`` (the same buffer in both
+        # packages; see ROADMAP, queue C).
+        perm = sattolo_cycle(n, self._rng)
+        chase, _ = load_host_chase()
+        addr = perm.ctypes.data
+        iters = max(self.iters, n)
+        chase(addr, iters)                  # warm-up pass (paper §IV-A)
+        out = np.empty(n_samples)
+        for s in range(n_samples):
+            t0 = time.perf_counter_ns()
+            chase(addr, iters)
+            out[s] = (time.perf_counter_ns() - t0) / iters
+        return out
+
+    def pchase_batch(self, space, array_bytes_list, stride, n_samples):
+        """Batched sweep over array sizes sharing one compiled chase.
+
+        Real hardware cannot overlap dependent chases, so this is a loop —
+        but it gives the engine one call site to schedule/cache, same as
+        the simulator's vector path.
+        """
+        rows = [self.pchase(space, int(ab), stride, n_samples)
+                for ab in array_bytes_list]
+        return np.stack(rows)
+
+    def pchase_many(self, requests, n_samples):
+        """Fused heterogeneous batch: dependent chases cannot overlap on
+        real hardware, so this is a loop — but it gives the fusion
+        dispatcher one call site, same as the simulator's vector path."""
+        return np.stack([self.pchase(space, int(ab), int(stride), n_samples)
+                         for space, ab, stride in requests])
+
+    def runner_spec(self):
+        """Rebuild recipe for pool workers.  Host samples are real wall
+        time, so shards are *statistically* interchangeable with inline
+        rows, never bit-identical — same contract as ``deterministic``."""
+        from ..engine.parallel import RunnerSpec
+
+        return RunnerSpec(build_host_runner,
+                          (self.max_bytes, self.iters, self.seed))
+
+    def cold_chase(self, space, array_bytes, stride, n_samples):
+        raise NotImplementedError("host runner has no cold-pass control")
+
+    def cold_chase_batch(self, space, array_bytes_list, stride_list,
+                         n_samples):
+        raise NotImplementedError("host runner has no cold-pass control")
+
+    def cold_chase_many(self, requests, n_samples):
+        raise NotImplementedError("host runner has no cold-pass control")
+
+    def amount_probe(self, *a, **k):
+        raise NotImplementedError("host runner is single-actor")
+
+    def sharing_probe(self, *a, **k):
+        raise NotImplementedError("host runner has a unified cache path")
+
+    def eviction_many(self, *a, **k):
+        raise NotImplementedError("host runner is single-actor")
+
+    # --------------------------------------------------------- bandwidth
+    def bandwidth(self, space, mode="read", nbytes: int = 128 * 1024**2,
+                  repeats: int = 5):
+        """Bytes a second of ``torch.sum`` (read) or ``v + 1.0`` (write)
+        over ``nbytes`` of f32 on the CPU, best of ``repeats`` after one
+        warm-up call.  ``torch`` is imported here alone, so pool workers
+        that only chase never load it."""
+        del space
+        import torch
+
+        x = torch.arange(nbytes // 4, dtype=torch.float32)
+        fn = torch.sum if mode == "read" else (lambda v: v + 1.0)
+        fn(x)
+        best = np.inf
+        for _ in range(repeats):
+            t0 = time.perf_counter_ns()
+            fn(x)
+            best = min(best, time.perf_counter_ns() - t0)
+        return nbytes / (best * 1e-9)

@@ -46,10 +46,13 @@ Design points (each one a production concern the HTTP front end surfaces):
   other while sim jobs stay concurrent.  A job's timeout covers its wait
   for the lock.
 
-Backends: ``"sim"`` (the simulated devices) and ``"cuda"`` (the
-hand-written probe kernels on the card, ``discover_cuda``).  ``"host"``
-is refused with a ``ValueError`` (HTTP 400): ``discover_host`` is not
-ported yet.
+Backends: ``"sim"`` (the simulated devices), ``"cuda"`` (the
+hand-written probe kernels on the card, ``discover_cuda``) and ``"host"``
+(this machine's CPU, ``discover_host``).  A ``"host"`` run holds
+``CARD_LOCK`` too: a card discovery spends most of its wall building chase
+buffers on the host CPU, which would perturb a host measurement running
+beside it, and a host run's own bandwidth probes would slow the card
+discovery's host side in turn.
 
 The wire format accepted by ``resolve_discovery`` is documented in
 ``docs/HTTP_API.md`` (``POST /discoveries``).
@@ -94,9 +97,11 @@ _COMMON_FIELDS = {"backend", "device", "seed", "n_samples", "elements",
 _BACKEND_FIELDS = {
     "sim": _COMMON_FIELDS,
     "cuda": _COMMON_FIELDS - {"device", "seed"},
+    "host": {"backend", "n_samples", "gc_policy", "refresh", "max_bytes",
+             "quick"},
 }
 
-# Held around every "cuda" run: one timed discovery on the card at a time.
+# Held around every "cuda" and "host" run: one timed discovery at a time.
 CARD_LOCK = threading.Lock()
 
 
@@ -151,7 +156,7 @@ def resolve_discovery(params: dict, store, parallel=None):
     executes the discovery write-through to ``store`` and returns
     ``(topology, timings)``.
 
-    A ``"cuda"`` thunk holds ``CARD_LOCK`` while it runs.
+    A ``"cuda"`` or ``"host"`` thunk holds ``CARD_LOCK`` while it runs.
 
     ``parallel`` (an ``engine.parallel.ParallelConfig``, normally the
     owning ``JobEngine``'s) threads multiprocess probe execution into the
@@ -164,6 +169,7 @@ def resolve_discovery(params: dict, store, parallel=None):
     """
     from ..core.discover import (cuda_request_descriptor,
                                  default_sweep_budget,
+                                 host_request_descriptor,
                                  sim_request_descriptor)
     from ..core.engine.store import request_key
     from ..core.simulate import SIM_DEVICES
@@ -171,9 +177,6 @@ def resolve_discovery(params: dict, store, parallel=None):
     if not isinstance(params, dict):
         raise ValueError("discovery request must be a JSON object")
     backend = params.get("backend", "sim")
-    if backend == "host":
-        raise ValueError("backend 'host': discover_host is not ported to "
-                         "repro_torch yet")
     allowed = _BACKEND_FIELDS.get(backend)
     if allowed is None:
         raise ValueError(f"unknown backend {backend!r} "
@@ -210,7 +213,7 @@ def resolve_discovery(params: dict, store, parallel=None):
             budget=budget, gc_policy=gc_policy, survey=survey,
             parallel=parallel)
 
-    else:                                                   # cuda
+    elif backend == "cuda":
         from ..core.discover import discover_cuda
         from ..core.probes.cuda_runner import make_cuda_model
 
@@ -228,6 +231,19 @@ def resolve_discovery(params: dict, store, parallel=None):
                     model, n_samples, elements, store=store,
                     refresh=refresh, budget=budget, gc_policy=gc_policy,
                     survey=survey, parallel=parallel)
+
+    else:                                                   # host
+        from ..core.discover import discover_host
+
+        max_bytes = int(params.get("max_bytes", 128 * 1024**2))
+        quick = bool(params.get("quick", True))
+        descriptor = host_request_descriptor(max_bytes, n_samples, quick)
+
+        def run():
+            with CARD_LOCK:
+                return discover_host(
+                    max_bytes, n_samples, quick, store=store,
+                    refresh=refresh, gc_policy=gc_policy, parallel=parallel)
 
     return descriptor, request_key(descriptor), run
 

@@ -7,15 +7,21 @@ seeded requests: topologies, retries, degraded families, injected faults,
 checkpoint contents and the resume arithmetic are equal in both, and
 ``request_key`` of a descriptor carrying a ``Resilience`` is bit-equal.
 
-``TestCheckpointResume`` is the reference's as it is: ``make_request``
-leaves ``max_workers=None``, so on a box with more than three effective
-cores the scheduler runs the items on threads, and which items finish
-before ``kill_after`` fires, and which request signature meets a fault
-first, follow the thread order.  Its cases race in the reference and here
-alike.  ``TestCheckpointResumeInline`` runs the same three cases with the
-scheduler inline (``max_workers=0``), where the order, and so the result,
-is the same every run.
+``TestCheckpointResume`` holds the reference's three cases to the same
+contract on threads: ``make_request`` leaves ``max_workers=None``, so on a
+box with more than three effective cores the scheduler runs the items on
+threads, and which items finish before a kill, and which request
+signature meets a fault first, follow the thread order.  The reference's
+cases assume one order (an item done within 40 probe calls; the job done
+within three attempts) and race; here the kill waits for the first
+checkpoint when no item has finished by call 40, and the job engine has
+the attempts that the faults of any order need, while every case still
+checks that the rows persisted plus the rows probed on resume are the
+clean run's misses.  ``TestCheckpointResumeInline`` runs the same three
+cases with the scheduler inline (``max_workers=0``), where the order, and
+so the result, is the same every run.
 """
+import dataclasses
 import functools
 import sys
 
@@ -280,8 +286,30 @@ class TestResilientDiscovery:
                 lambda: ChaosRunner(h100_runner(), sched), None))
 
 
+def kill_past_first_checkpoint(monkeypatch, store, holder, horizon=40):
+    """Arm the kill switch of the chaos runner in ``holder["r"]`` when the
+    first checkpoint lands, at ``max(horizon, its calls by then)``.
+
+    Inline, the first item finishes well within ``horizon`` calls, so this
+    is ``FaultSchedule(kill_after=horizon)``.  On threads, six items may
+    interleave their first sweeps past call ``horizon`` without finishing
+    one; the kill then comes at the first call after the first checkpoint,
+    so a kill always leaves something to resume, whatever the order."""
+    put = store.put_checkpoint
+
+    def put_checkpoint(key, entries, families=None):
+        put(key, entries, families)
+        chaos = holder["r"]
+        if chaos.schedule.kill_after is None:
+            chaos.schedule = dataclasses.replace(
+                chaos.schedule, kill_after=max(horizon, chaos.calls))
+
+    monkeypatch.setattr(store, "put_checkpoint", put_checkpoint)
+
+
 class TestCheckpointResume:
-    def test_interrupt_then_resume_zero_recompute(self, tmp_path):
+    def test_interrupt_then_resume_zero_recompute(self, tmp_path,
+                                                  monkeypatch):
         """Kill a discovery mid-run; the rerun must (a) preload the
         checkpoint, (b) re-probe ZERO persisted rows (exact miss
         arithmetic), (c) produce the equivalent topology, (d) clear the
@@ -293,10 +321,10 @@ class TestCheckpointResume:
         store = TopologyStore(str(tmp_path / "store"))
         policy = no_sleep_resilience()
         holder = {}
+        kill_past_first_checkpoint(monkeypatch, store, holder)
 
         def mk_killed():
-            holder["r"] = ChaosRunner(h100_runner(),
-                                      FaultSchedule(seed=5, kill_after=40))
+            holder["r"] = ChaosRunner(h100_runner(), FaultSchedule(seed=5))
             return holder["r"]
 
         with pytest.raises(RuntimeError, match="chaos kill"):
@@ -319,14 +347,16 @@ class TestCheckpointResume:
         _, t3 = discover(make_request(h100_runner, policy), store=store)
         assert "cache" not in t3.meta
 
-    def test_checkpoint_is_per_request_key(self, tmp_path):
+    def test_checkpoint_is_per_request_key(self, tmp_path, monkeypatch):
         """Different request descriptors never share a checkpoint."""
         store = TopologyStore(str(tmp_path / "store"))
         policy = no_sleep_resilience()
+        holder = {}
+        kill_past_first_checkpoint(monkeypatch, store, holder)
 
         def mk():
-            return ChaosRunner(h100_runner(),
-                               FaultSchedule(seed=5, kill_after=40))
+            holder["r"] = ChaosRunner(h100_runner(), FaultSchedule(seed=5))
+            return holder["r"]
 
         with pytest.raises(RuntimeError):
             discover(make_request(mk, policy), store=store)
@@ -340,8 +370,15 @@ class TestCheckpointResume:
                                                       monkeypatch):
         """The serve path: attempt 1 dies on an escaped transient fault
         (engine retry disabled), the JobEngine's capped retry reruns the
-        request, and attempt 2 resumes from the checkpoint — probing far
-        fewer rows than attempt 1 did."""
+        request, and the retries resume from the checkpoint until one
+        finishes — every attempt probing fewer rows than a full run.
+
+        Inline the job needs three attempts (two faults).  On threads the
+        items still running when one faults finish or fault after the last
+        checkpoint, and the uncached bandwidth rows run again in every
+        attempt, so how many faults the job meets follows the thread
+        order; the budget of nine attempts leaves room for any order, and
+        every failed attempt must have met a fault."""
         from repro_torch.serve import jobs as jobs_module
         from repro_torch.serve.jobs import JobEngine
 
@@ -359,8 +396,9 @@ class TestCheckpointResume:
         # dispatch count of a full, clean, storeless run — the work a
         # non-resuming retry would pay every time
         probe = ChaosRunner(h100_runner())
-        discover(make_request(lambda: probe, policy))
+        _, clean_t = discover(make_request(lambda: probe, policy))
         full_calls = probe.calls
+        clean_misses = clean_t.meta["cache"]["misses"]
         calls_per_attempt = []
         timings_seen = []
 
@@ -380,7 +418,7 @@ class TestCheckpointResume:
             return request.descriptor, request_key(request.descriptor), run
 
         monkeypatch.setattr(jobs_module, "resolve_discovery", fake_resolve)
-        engine = JobEngine(store, workers=1, max_retries=2,
+        engine = JobEngine(store, workers=1, max_retries=8,
                            sleep=lambda _s: None).start()
         try:
             job, created = engine.submit({"backend": "sim",
@@ -391,14 +429,18 @@ class TestCheckpointResume:
             engine.stop()
         assert job.state == "done", job.error
         assert job.attempts >= 2            # >= one job-level retry happened
-        assert chaos.faults_injected >= 1
+        assert chaos.faults_injected >= job.attempts - 1
         # resume did real work-saving: every attempt (failed early OR
         # resumed from the checkpoint) dispatched fewer probes than a full
         # from-scratch run would have
         assert len(calls_per_attempt) == job.attempts
         assert all(c < full_calls for c in calls_per_attempt)
-        # ...and the successful attempt really did preload the checkpoint
-        assert timings_seen[-1].meta["resume"]["rows"] > 0
+        # ...and the successful attempt really did preload the checkpoint,
+        # and probed exactly the rows it did not hold
+        resume = timings_seen[-1].meta["resume"]["rows"]
+        assert resume > 0
+        assert resume + timings_seen[-1].meta["cache"]["misses"] \
+            == clean_misses
         assert not store.has_checkpoint(job.key)
         assert store.get(job.key) is not None
 

@@ -12,7 +12,8 @@ no HTTP (see ``test_torch_remote_discovery.py`` for the live-server paths).
 The port's own backend, ``"cuda"``, takes the place of the reference's
 ``"pallas"``: its job key is the key ``discover_cuda`` persists under;
 without a card its job fails naming CUDA and runs nothing on the CPU; and
-two ``"cuda"`` jobs never run at once.  ``"host"`` is refused.
+two ``"cuda"`` jobs never run at once.  ``"host"`` takes the reference's
+fields, keys as ``discover_host`` persists, and refuses a card's fields.
 """
 import threading
 
@@ -57,7 +58,7 @@ class TestResolveDiscovery:
     @pytest.mark.parametrize("params, fragment", [
         ("not-a-dict", "JSON object"),
         ({"backend": "pallas"}, "unknown backend"),
-        ({"backend": "host"}, "discover_host is not ported"),
+        ({"backend": "host", "device": "h100"}, "unknown field"),
         ({"backend": "cuda", "device": "h100"}, "unknown field"),
         ({"backend": "sim", "device": "rtx5090"}, "unknown simulated device"),
         ({"backend": "sim", "device": "h100", "max_bytes": 1}, "unknown field"),
@@ -72,6 +73,22 @@ class TestResolveDiscovery:
                                                   fragment):
         with pytest.raises(ValueError, match=fragment):
             resolve_discovery(params, store)
+
+    def test_host_request_keys_as_discover_host_persists(self, store):
+        """A ``"host"`` request resolves with the reference's fields and
+        defaults to ``discover_host``'s descriptor and store key."""
+        from repro_torch.core.discover import host_request_descriptor
+
+        descriptor, key, run = resolve_discovery({"backend": "host"}, store)
+        assert descriptor == host_request_descriptor(128 * 1024**2, 9, True)
+        assert key == request_key(descriptor)
+        params = {"backend": "host", "max_bytes": 8 * 1024**2,
+                  "n_samples": 5, "quick": False, "refresh": True,
+                  "gc_policy": None}
+        descriptor, key, _ = resolve_discovery(params, store)
+        assert descriptor == host_request_descriptor(8 * 1024**2, 5, False)
+        assert key == request_key(descriptor)
+        assert callable(run)
 
     def test_budget_accepts_default_and_kwargs(self, store):
         _, key_none, _ = resolve_discovery(SIM_H100, store)

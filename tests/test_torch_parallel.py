@@ -1,15 +1,16 @@
 """The port's worker-process pool against the reference package's.
 
 ``TestParallelDispatch`` is the reference's class of
-``tests/test_runner_protocol.py`` re-pointed at ``repro_torch``, but for
-``test_host_structural_through_pool``, which waits for the port's
-``HostRunner``.  Every pool here is closed by its fixture or ``with``
+``tests/test_runner_protocol.py`` re-pointed at ``repro_torch``, with
+``test_host_structural_through_pool`` on the port's ``HostRunner``.  Every
+pool here is closed by its fixture or ``with``
 block, answers within 30 s or is killed (``call_timeout_s``), has at most
 two workers, and leaves no shared-memory segment behind (checked after
 each test).  Beside it: pooled port rows and pooled port discoveries equal
 the reference's inline ones bit for bit, the CUDA runner stays inline, a
 job engine threads its pool config into its jobs, and the modules a worker
-imports pull in neither ``torch`` nor ``jax``.
+imports, a host runner's chase included, pull in neither ``torch`` nor
+``jax``.
 """
 import multiprocessing
 import os
@@ -35,7 +36,8 @@ from repro_torch.core.engine.parallel import (ParallelConfig, ParallelPool,
                                               maybe_parallel_runner,
                                               shutdown_global_pools)
 from repro_torch.core.errors import Resilience, TransientRunnerError
-from repro_torch.core.probes import ChaosRunner, FaultSchedule, SimRunner
+from repro_torch.core.probes import (ChaosRunner, FaultSchedule, HostRunner,
+                                     SimRunner)
 from repro_torch.core.topology import topology_equivalent
 
 KIB, MIB = 1024, 1024**2
@@ -146,6 +148,20 @@ class TestParallelDispatch:
         # A single-row batch cannot split below one row per shard.
         pooled.pchase_many([("L1", 32 * KIB, 32)], 5)
         assert pool.shards == shards0 + 3
+
+    def test_host_structural_through_pool(self, pool):
+        """Measuring runners pool too — structurally, never bit-for-bit."""
+        pooled = maybe_parallel_runner(
+            HostRunner(max_bytes=8 * MIB, iters=1 << 10), PCFG, pool=pool)
+        info = pooled.spaces()[0]
+        ab = min(info.max_bytes // 8, 64 * KIB)
+        rows = np.asarray(pooled.pchase_many(
+            [(info.name, ab, 64), (info.name, ab // 2, 64)], 3))
+        assert rows.shape == (2, 3) and rows.dtype == np.float64
+        assert np.all(np.isfinite(rows)) and np.all(rows > 0)
+        # Capability refusals keep their exception type across the pool.
+        with pytest.raises(NotImplementedError):
+            pooled.cold_chase_many([(info.name, ab, 64)], 3)
 
     def test_caching_over_pool_serves_repeats_locally(self, pool):
         """Engine ordering: cache above the pool, misses-only cross over."""
@@ -357,6 +373,31 @@ def test_worker_modules_import_neither_torch_nor_jax():
         ".runner_spec()\n"
         "runner = pickle.loads(pickle.dumps(spec)).build()\n"
         "runner.pchase_many([('L1', 16384, 32)], 5)\n"
+        "print(sorted(m for m in ('torch', 'jax', 'repro')"
+        " if m in sys.modules))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=60, check=True)
+    assert out.stdout.strip() == "[]", out.stderr
+
+
+def test_host_worker_imports_neither_torch_nor_jax():
+    """A worker that rebuilds a ``HostRunner`` through
+    ``build_host_runner`` and chases (the compiled chase loaded by
+    ``ctypes``) leaves ``torch``, ``jax`` and the reference package out of
+    ``sys.modules``."""
+    code = (
+        "import pickle, sys\n"
+        f"sys.path.insert(0, {SRC!r})\n"
+        "import repro_torch.core.probes.runners as runners\n"
+        "spec = runners.HostRunner(max_bytes=1 << 23, iters=1 << 10,"
+        " seed=4).runner_spec()\n"
+        "for runner in (runners.build_host_runner(1 << 23, 1 << 10, 4),"
+        " pickle.loads(pickle.dumps(spec)).build()):\n"
+        "    assert type(runner) is runners.HostRunner\n"
+        "    assert (runner.max_bytes, runner.iters, runner.seed)"
+        " == (1 << 23, 1 << 10, 4)\n"
+        "rows = runner.pchase_many([('host-cache', 16384, 64)], 3)\n"
+        "assert rows.shape == (1, 3) and (rows > 0).all()\n"
         "print(sorted(m for m in ('torch', 'jax', 'repro')"
         " if m in sys.modules))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

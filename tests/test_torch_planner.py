@@ -8,8 +8,9 @@ fewer grid rows — the dense path stays available behind ``budget=None`` as
 the equivalence oracle.  Identity holds by construction (both paths run the
 same deterministic classification descent over the same sweep lattice) and
 is exercised here over randomized hierarchies via the hypothesis shim, on
-the Sim runner and on the CUDA runner's plain versions (the host runner
-is not ported yet).
+the Sim runner and on the CUDA runner's plain versions; on the host
+runner, whose rows are real measurements, found-parity and one lattice
+step (``TestPlannedHost``).
 
 Fusion's contract mirrors it: coalescing ready work items' probe rounds
 into single batched dispatches must be result-invisible (request-keyed
@@ -409,6 +410,27 @@ def _grid_step(res) -> int:
     """The final sweep lattice step of a SizeResult (tolerance unit)."""
     s = res.sizes_swept
     return int(s[1] - s[0]) if s.size >= 2 else 1
+
+
+class TestPlannedHost:
+    def test_host_identity_on_shared_cache(self):
+        """Host rows are real measurements: the planner descends over
+        *cached* rows of the same request keys (a prior dense run's
+        samples), but the final boundary window is deliberately
+        re-measured fresh (drift robustness), so the discrete contract on
+        measuring runners is found-parity plus one-lattice-step agreement
+        — bit-exact identity is the request-keyed runners' guarantee."""
+        from repro_torch.core.probes import HostRunner
+
+        cached = CachingRunner(HostRunner(max_bytes=8 * MIB, iters=1 << 11))
+        kw = dict(lo=64 * KIB, step=16 * KIB, n_samples=5,
+                  max_bytes=8 * MIB, max_points=24, max_widenings=1)
+        d = find_size(cached, "host-cache", batched=True, **kw)
+        p = find_size(cached, "host-cache", budget=SweepBudget(), **kw)
+        assert d.found == p.found
+        if d.found:
+            assert abs(d.size - p.size) <= 2 * max(_grid_step(d),
+                                                   _grid_step(p))
 
 
 # ------------------------------------------------------------- fusion

@@ -118,7 +118,8 @@ class TestEndToEnd:
 
     def test_bad_wire_params_400_before_enqueue(self, server, client):
         before = client.metrics()["jobs"]["submitted"]
-        for bad in ({"backend": "pallas"}, {"backend": "host"},
+        for bad in ({"backend": "pallas"},
+                    {"backend": "host", "device": "h100"},
                     {"backend": "sim", "device": "rtx5090"},
                     {"backend": "sim", "device": "h100", "n_samples": 0}):
             with pytest.raises(TopologyHTTPError) as ei:
@@ -384,10 +385,26 @@ class TestWaitPacing:
             srv.stop()
 
 
-def test_host_backend_is_a_400_naming_the_unported_module(server, client):
-    before = client.metrics()["jobs"]["submitted"]
-    with pytest.raises(TopologyHTTPError) as ei:
-        client.submit_discovery({"backend": "host"})
-    assert ei.value.status == 400
-    assert "discover_host is not ported" in ei.value.payload["error"]
-    assert client.metrics()["jobs"]["submitted"] == before
+def test_host_job_answered_then_served_from_the_store(server, client,
+                                                      monkeypatch):
+    """A ``"host"`` job at 8 MiB runs ``discover_host`` server-side, is
+    readable through the query endpoints, and its resubmit is a store hit
+    that builds no runner."""
+    import importlib
+
+    host = {"backend": "host", "max_bytes": 8 * 1024**2, "n_samples": 5}
+    first = client.submit_and_wait(host, timeout_s=120)
+    assert first["state"] == "done", first.get("error")
+    assert first["result"]["store_hit"] is False
+    assert first["result"]["model"] == "cpu"
+    topo = client.topology(first["key"])["topology"]
+    assert [m["name"] for m in topo["memory"]] == ["host-cache", "DRAM"]
+    q = client.query(first["key"], "DRAM.read_bw")
+    assert q["found"] and q["value"] > 0
+
+    discover_module = importlib.import_module("repro_torch.core.discover")
+    monkeypatch.setattr(discover_module, "HostRunner", None)   # no probe
+    second = client.submit_and_wait(host, timeout_s=60)
+    assert second["state"] == "done", second.get("error")
+    assert second["key"] == first["key"]
+    assert second["result"]["store_hit"] is True

@@ -10,6 +10,11 @@ and are not compared.
 The calibration invariant the timing rests on: within one timed loop,
 every calibration launch has the request's launch shape and the request's
 per-row chain lengths, and uses other buffers than the request.
+
+``TestHostRunnerProtocol`` is the ``"host"`` row of the reference's
+conformance suite (``tests/test_runner_protocol.py``) re-pointed at the
+port's ``HostRunner``: the protocol surface, real samples of the right
+shape, the capability refusals the engine relies on, and bandwidth.
 """
 from dataclasses import asdict
 
@@ -21,10 +26,12 @@ import torch
 import repro.kernels.pchase_probe as ref_pchase
 import repro.kernels.stream_probe as ref_stream
 from repro.core.probes import PallasRunner, make_pallas_model
-from repro_torch.core.probes import CudaRunner, make_cuda_model
+from repro_torch.core.engine.registry import space_probe_specs
+from repro_torch.core.probes import (CudaRunner, HostRunner, ProbeRunner,
+                                     make_cuda_model)
 from repro_torch.kernels import ops
 
-KIB = 1024
+KIB, MIB = 1024, 1024**2
 N_SAMPLES = 5
 RUNNER_KW = dict(base_steps=256, bandwidth_bytes=1 << 16, seed=11)
 
@@ -185,3 +192,82 @@ def test_calibration_matches_request_launch_profile(recorded, step):
         buffers[key] = buffers.get(key, 0) + 1
     assert len(buffers) == 2                   # request and calibration
     assert sorted(buffers.values())[0] == 3    # three calibration launches
+
+
+# --------------------------------------------------------------------------
+# The host runner under the reference's conformance suite
+# --------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def host():
+    return HostRunner(max_bytes=8 * MIB, iters=1 << 12)
+
+
+def _probe_space(runner):
+    """A (space, in-capacity array size) pair valid for any backend."""
+    info = runner.spaces()[0]
+    return info, min(info.max_bytes // 8, 64 * KIB)
+
+
+class TestHostRunnerProtocol:
+    def test_satisfies_probe_runner_protocol(self, host):
+        assert isinstance(host, ProbeRunner)
+
+    def test_declares_determinism(self, host):
+        assert host.deterministic is False     # real wall-time samples
+
+    def test_spaces_well_formed(self, host):
+        infos = host.spaces()
+        assert infos
+        names = [i.name for i in infos]
+        assert len(set(names)) == len(names)
+        for i in infos:
+            assert i.kind in ("cache", "scratchpad", "memory")
+            assert i.max_bytes > 0
+
+    def test_sample_shape_and_domain(self, host):
+        info, ab = _probe_space(host)
+        out = np.asarray(host.pchase(info.name, ab, 32, 7))
+        assert out.shape == (7,)
+        assert out.dtype.kind == "f"
+        assert np.all(np.isfinite(out)) and np.all(out > 0)
+
+    def test_batch_is_structurally_valid(self, host):
+        info, ab = _probe_space(host)
+        batch = np.asarray(host.pchase_batch(info.name, [ab, ab * 2, ab * 3],
+                                             32, 7))
+        assert batch.shape == (3, 7)
+        assert np.all(np.isfinite(batch)) and np.all(batch > 0)
+
+    def test_cold_capability_flag_respected(self, host):
+        """Spaces without cold-pass support must be refused by measuring
+        runners — the engine relies on the flag."""
+        uncold = [i for i in host.spaces() if not i.supports_cold]
+        assert uncold
+        with pytest.raises(NotImplementedError):
+            host.cold_chase(uncold[0].name, 64 * KIB, 32, 65)
+
+    def test_amount_probe_refused(self, host):
+        assert not [i for i in host.spaces() if i.supports_amount]
+        with pytest.raises(NotImplementedError):
+            host.amount_probe("anything", 0, 1, 4 * KIB, 7)
+
+    def test_sharing_probe_refused(self, host):
+        assert not [i for i in host.spaces() if i.supports_sharing]
+        with pytest.raises(NotImplementedError):
+            host.sharing_probe("a", "b", 4 * KIB, 7)
+
+    def test_eviction_many_refused(self, host):
+        with pytest.raises(NotImplementedError):
+            host.eviction_many([("amount", "anything", 0, 1, 4 * KIB)], 7)
+
+    def test_bandwidth_read_write_positive(self, host):
+        for mode in ("read", "write"):
+            bw = host.bandwidth("DRAM", mode)
+            assert isinstance(bw, float) and bw > 0
+
+    def test_registry_gates_cold_families(self, host):
+        for info in host.spaces():
+            families = {s.family for s in space_probe_specs(info)}
+            assert "fetch_granularity" not in families
+            assert "line_size" not in families
+            assert "amount" not in families
