@@ -111,7 +111,9 @@ to a plain version):
              K 64 with V 32, the reference's chunk 64, and split into
              slices of at most 128 at K = V = 192 and K 160 with V 96) and
              ``ops.pchase`` at the shapes the serve phase gives them (and
-             attention at head dim 256 also at paligemma-3b's head layout),
+             attention at head dim 256 also at paligemma-3b's head layout,
+             and at the served moe and hybrid models' heads: 32 on 4 at
+             d 128, 32 on 32 at d 80),
              against their plain versions (tolerances at each check; the
              tensor-core kernel also against the plain emulation of its own
              numerics), with CUDA-event times, device times (both attention
@@ -120,25 +122,30 @@ to a plain version):
              attention, ``scaled_dot_product_attention`` as the library
              yardstick;
 5. serve   — ``repro_torch.launch.serve.main`` at full width and depth in
-             bfloat16 for qwen3-14b, then rwkv6-3b (8 requests of 512
+             bfloat16 for qwen3-14b (dense), rwkv6-3b (ssm),
+             qwen3-moe-30b-a3b (moe, 30.5 B parameters, after the others
+             are freed) and zamba2-2.7b (hybrid) (8 requests of 512
              tokens, 16 new tokens each, 4 slots): the launch counts read
              around each call alone (one ``mha`` or ``wkv6`` per layer and
-             wave; every ``mha`` a launch of the tensor-core kernel at head
-             dim 128 and none at another head dim or of the CUDA-core
-             kernel, counted by head dim where each kernel launches), 16
-             tokens a request, finite
-             logits, equal greedy tokens
-             from a second, warm run of one wave; that warm wave's prefill
-             and decode split, and a third run of it under
+             wave, zamba2's one ``mha`` per site of its shared block; every
+             ``mha`` a launch of the tensor-core kernel at the model's head
+             dim, 128 or zamba2's 80, and none at another head dim or of
+             the CUDA-core kernel, counted by head dim where each kernel
+             launches), 16 tokens a request, finite logits, equal greedy
+             tokens from a second, warm run of one wave; that warm wave's
+             prefill and decode split, and a third run of it under
              ``torch.profiler`` for the device-busy time and idle share of
              each (the device's events split into the prefill's and each
              decode step's at a marker kernel queued after each sampling,
-             in the order the device ran them; qwen3-14b's prefill must
-             show the tensor-core attention kernel once a layer, rwkv6-3b's
+             in the order the device ran them; the prefill must show the
+             tensor-core attention kernel once a layer or site, rwkv6-3b's
              each WKV6 kernel once a layer, a profiled wave that falls short
              of its parts or of those counts is run again, up to three, and
-             each prints their device time there); then the smoke configs
-             in f32 on the card
+             each prints their device time there); for the moe model a
+             profiled prefill and decode step with the moe FFN's parts
+             (routing, dispatch, expert GEMMs, combine) split at markers,
+             their device time and shares, and the pairs layer 0 drops by
+             capacity; then the four smoke configs in f32 on the card
              (where the CUDA-core attention kernel runs, at head dim 16 on
              its d 32 instantiation) against the same weights on the CPU.
 
@@ -200,6 +207,7 @@ PROFILER_SESSIONS = 3             # tries at a whole profiler session
 SESSIONS = {"whole": 0, "retaken": 0}   # device_ms's sessions in this run
 MARK_CYCLES = 1000                # the marker kernel's spin
 LEAD_IN = 2                       # markers that open a session
+LEAD_IN_CYCLES = 2_000_000        # the spin that opens a session, ~1 ms
 
 
 def mark() -> None:
@@ -209,6 +217,18 @@ def mark() -> None:
     depends on where the profiler places device events on the host's clock
     (in some sessions all of them fell into the first span)."""
     torch.cuda._sleep(MARK_CYCLES)
+
+
+def lead_in() -> None:
+    """Open a profiler session: one long spin of the marker kernel, waited
+    for, then ``LEAD_IN`` markers.  A session's first device events are at
+    times missing from the profile (the first eight kernels of the moe
+    routing, in every session, when the markers alone opened it), so
+    nothing that is measured runs in its first millisecond."""
+    torch.cuda._sleep(LEAD_IN_CYCLES)
+    torch.cuda.synchronize()
+    for _ in range(LEAD_IN):
+        mark()
 
 
 def _device_events(prof) -> list:
@@ -294,8 +314,7 @@ def device_ms(fns: dict, reps: int = REPS) -> dict:
     for attempt in range(1, PROFILER_SESSIONS + 1):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for _ in range(LEAD_IN):
-                mark()
+            lead_in()
             for fn, _ in fns.values():
                 fn()
                 mark()
@@ -1802,8 +1821,11 @@ OLD_BF16_ATOL = 2e-3
 # sources' wide kernels at head dim 320 causal and full, 300 (bf16's row
 # padded to 304), 384 and 512 (32-key tiles in bf16) causal, 512 full, and
 # 640 causal (two column slices of the d 320 instantiation, each reading q
-# and k in two chunks).
+# and k in two chunks); and bf16 at the heads of the served moe and hybrid
+# models (32 query heads on 4 kv heads at d 128, 32 on 32 at d 80).
 SERVE_HEADS = (ATTN["hq"], ATTN["hkv"])
+MOE_HEADS = (32, 4)             # qwen3-moe-30b-a3b: a GQA group of 8, d 128
+ZAMBA2_HEADS = (32, 32)         # zamba2-2.7b's shared block: d 80, no GQA
 WIDE_DIMS = (300, 384, 512, 640)     # past 256, beside d 320 (row 6c)
 PALIGEMMA_HEADS = (8, 1)
 SMOKE_HEADS = (6, 2)            # phase 5's qwen3-14b-smoke overrides
@@ -1837,9 +1859,12 @@ ATTN_CASES = ((torch.bfloat16, 512, True, 128, *SERVE_HEADS),
                 for d in WIDE_DIMS
                 for dtype in (torch.bfloat16, torch.float32)),
               (torch.bfloat16, 512, False, 512, *SERVE_HEADS),
-              (torch.float32, 512, False, 512, *SERVE_HEADS))
+              (torch.float32, 512, False, 512, *SERVE_HEADS),
+              (torch.bfloat16, 512, True, 128, *MOE_HEADS),
+              (torch.bfloat16, 512, True, 80, *ZAMBA2_HEADS))
 # The rows of the kernels line that these cases give, by (head dim, dtype)
-# at the serving heads, length and causal mask.
+# at the serving heads, length and causal mask; the cases at a served
+# model's own heads add their numbers to their row's ``shapes``.
 ATTN_ROWS = {(128, torch.bfloat16): "mha", (128, torch.float32): "mha_f32",
              (256, torch.bfloat16): "mha_d256", (32, torch.bfloat16): "mha_d32",
              (80, torch.bfloat16): "mha_d80", (100, torch.bfloat16): "mha_d100",
@@ -1852,6 +1877,8 @@ ATTN_ROWS = {(128, torch.bfloat16): "mha", (128, torch.float32): "mha_f32",
                             f"d{d}"
                 for d in WIDE_DIMS
                 for dtype in (torch.bfloat16, torch.float32)}}
+SERVED_HEAD_ROWS = {(128, torch.bfloat16, *MOE_HEADS): "mha",
+                    (80, torch.bfloat16, *ZAMBA2_HEADS): "mha_d80"}
 # WKV6 in f32: 64-term dot products and 32-step chunk sums in other
 # orders; errors scale with the largest output.
 WKV_RTOL = 1e-4
@@ -1997,6 +2024,12 @@ def phase_llm_kernels(floor: dict) -> dict:
         name = ATTN_ROWS.get((d, dtype))
         if seq == ATTN["s"] and causal and hq == ATTN["hq"] and name:
             rows[name] = row
+        served = SERVED_HEAD_ROWS.get((d, dtype, hq, hkv))
+        if seq == ATTN["s"] and causal and served:
+            rows[served].setdefault("shapes", {})[shape] = {
+                key: row[key] for key in (
+                    "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "library_device_ms", "max_abs_err")}
         del q, k, v, qt, kt, vt, got, want, diff
 
     b, h, kd, chunk = (WKV[x] for x in ("b", "h", "k", "chunk"))
@@ -2147,6 +2180,15 @@ def phase_llm_kernels(floor: dict) -> dict:
 # Phase 5: token serving at full width
 # --------------------------------------------------------------------------
 SERVE = dict(requests=8, prompt_len=512, max_new=16, max_len=640, slots=4)
+# The served models, full width and depth, and the wrapper each one's
+# prefill launches: dense, ssm, moe and hybrid.
+SERVED = (("qwen3-14b", "mha"), ("rwkv6-3b", "wkv6"),
+          ("qwen3-moe-30b-a3b", "mha"), ("zamba2-2.7b", "mha"))
+# The float32 smoke configs held on the card to the CPU (a GQA group of 3
+# for the dense one, as the CPU tests run it).
+SMOKE_CONFIGS = (("qwen3-14b-smoke", dict(n_heads=6, n_kv_heads=2)),
+                 ("rwkv6-3b-smoke", {}), ("qwen3-moe-30b-a3b-smoke", {}),
+                 ("zamba2-2.7b-smoke", {}))
 # Smoke configs on the card against the CPU, float32 on both: the CPU runs
 # the plain versions, the card the kernels and cuBLAS in full float32; the
 # sums differ in order only.
@@ -2180,8 +2222,7 @@ def _profile_wave(arch: str, eng, prompts, unprofiled: dict) -> dict | None:
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for _ in range(LEAD_IN):
-                mark()
+            lead_in()
             again = eng.generate_batch(prompts, SERVE["max_new"])
             torch.cuda.synchronize()
     finally:
@@ -2217,7 +2258,8 @@ def _profile_wave(arch: str, eng, prompts, unprofiled: dict) -> dict | None:
               f"{1 - busy / wall:.3f}; device events {len(mine)}")
         for kname, (us, n) in sorted(by_name.items(),
                                      key=lambda kv: -kv[1][0])[:TOP_KERNELS]:
-            print(f"[profile]   {us / 1e3:9.3f} ms {n:6d}x {kname[:100]}")
+            print(f"[profile]   {us / 1e3:9.3f} ms {us / 1e6 / busy:6.3f} of "
+                  f"busy {n:6d}x {kname[:100]}")
         parts[part] = by_name
     return parts
 
@@ -2229,6 +2271,32 @@ def _serve_argv(arch: str) -> list[str]:
             "--slots", str(SERVE["slots"]), "--dtype", "bfloat16"]
 
 
+def _to_card(tree):
+    """A parameter tree (dictionaries and lists of tensors, nested) with
+    every tensor copied to the card."""
+    if isinstance(tree, dict):
+        return {name: _to_card(sub) for name, sub in tree.items()}
+    if isinstance(tree, list):
+        return [_to_card(sub) for sub in tree]
+    return tree.cuda()
+
+
+def _numel(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_numel(sub) for sub in tree.values())
+    if isinstance(tree, list):
+        return sum(_numel(sub) for sub in tree)
+    return tree.numel()
+
+
+def _attention_per_wave(cfg) -> int:
+    """``mha`` calls of one prefill: one a layer, or one a site of zamba2's
+    shared block."""
+    from repro_torch.models.zamba2 import n_sites
+
+    return n_sites(cfg) if cfg.family == "hybrid" else cfg.n_layers
+
+
 def _smoke_agreement(arch: str, overrides: dict) -> float:
     """Prefill and two decode steps of a float32 smoke config on the card
     and on the CPU, on the same weights; the largest logit difference."""
@@ -2238,9 +2306,7 @@ def _smoke_agreement(arch: str, overrides: dict) -> float:
     cfg = get_config(arch).replace(dtype="float32", **overrides)
     model = get_model(cfg)
     cpu = model.init(seed=0, device="cpu")
-    card = {name: ([{k: t.cuda() for k, t in layer.items()}
-                    for layer in value] if name == "layers" else value.cuda())
-            for name, value in cpu.items()}
+    card = _to_card(cpu)
     rng = np.random.default_rng(2)
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 100)))
     steps = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 2, 1)))
@@ -2264,6 +2330,118 @@ def _smoke_agreement(arch: str, overrides: dict) -> float:
     return worst
 
 
+MOE_PARTS = ("routing", "dispatch", "experts", "combine")
+
+
+def _moe_marked(cfg, run) -> tuple[dict, list] | None:
+    """Run ``run`` (a prefill or a decode step of a moe model) under
+    ``torch.profiler`` with the model's moe FFN split into its parts
+    (``MOE_PARTS``: the router GEMM, the top-k sort, the sort of the pairs
+    by expert and the group starts; the scatter into the (E, C, d) buffer;
+    the three batched expert GEMMs; the gather back, the weights and the
+    sum over k), each closed by a marker kernel, so the device's events
+    split at the markers into each layer's parts.  Returns the device ms
+    of each part summed over the layers, of ``other`` (all else) and of
+    ``busy`` (all), and each layer's routing; None when the session does
+    not split into the parts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import moe, transformer
+
+    marker = _marker_name()
+    routings = []
+
+    def marked(p, x, cfg_):
+        bsz, seq, d = x.shape
+        xt = x.reshape(bsz * seq, d)
+        mark()
+        r = moe.route(p, xt, cfg_)
+        mark()
+        buf = moe.dispatch(r, xt, cfg_)
+        mark()
+        out = moe.experts(p, buf)
+        mark()
+        y = moe.combine(r, out, cfg_)
+        mark()
+        routings.append(r)
+        return y.reshape(bsz, seq, d), r.probs
+
+    ffn, transformer.moe_ffn = transformer.moe_ffn, marked
+    try:
+        with torch.no_grad(), profile(activities=[
+                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            lead_in()
+            run()
+            mark()
+            torch.cuda.synchronize()
+    finally:
+        transformer.moe_ffn = ffn
+    per_layer = len(MOE_PARTS) + 1
+    parts = marked_parts(_device_events(prof), marker,
+                         per_layer * cfg.n_layers + 1)
+    if parts is None:
+        return None
+    ms = {name: 0.0 for name in (*MOE_PARTS, "other")}
+    for i, part in enumerate(parts):
+        name = ("other", *MOE_PARTS)[i % per_layer] \
+            if i < per_layer * cfg.n_layers else "other"
+        ms[name] += sum(us for _, us in part) / 1e3
+    ms["busy"] = sum(ms.values())
+    return ms, routings
+
+
+def _moe_report(eng, prompts) -> dict:
+    """The moe FFN of the served model in a warm prefill wave and in its
+    first decode step: the device time of each of its parts summed over
+    the layers and their shares of the device's busy time
+    (``_moe_marked``), and the pairs dropped by capacity in the first
+    layer."""
+    cfg = eng.model.cfg
+    tokens = torch.as_tensor(prompts, dtype=torch.long, device=eng.device)
+    state = {}
+
+    def prefill():
+        state["logits"], state["cache"] = eng.model.prefill(
+            eng.params, {"tokens": tokens}, SERVE["max_len"])
+
+    def decode():
+        eng.model.decode_step(eng.params, {"tokens": torch.argmax(
+            state["logits"], dim=-1)[:, None]}, state["cache"])
+
+    report = {}
+    for part, run in (("prefill", prefill), ("decode step", decode)):
+        for attempt in range(1, PROFILER_SESSIONS + 1):
+            got = _moe_marked(cfg, run)
+            if got is not None:
+                SESSIONS["whole"] += 1
+                break
+            SESSIONS["retaken"] += 1
+            print(f"[moe] {cfg.name} {part}: profiled session {attempt} of "
+                  f"{PROFILER_SESSIONS} does not split into "
+                  f"{len(MOE_PARTS) + 1} parts a layer")
+        else:
+            raise SmokeFailure(f"{cfg.name}: no whole profiled {part} with "
+                               f"the moe parts marked")
+        ms, routings = got
+        check(len(routings) == cfg.n_layers,
+              f"{cfg.name} {part}: {len(routings)} moe calls for "
+              f"{cfg.n_layers} layers")
+        first = routings[0]
+        pairs = first.keep.numel()
+        dropped = int((~first.keep).sum())
+        print(f"[moe] {cfg.name} {part} ({pairs // cfg.moe_top_k} tokens, "
+              f"top {cfg.moe_top_k} of {cfg.moe_experts}, capacity "
+              f"{first.cap}): layer 0 dropped {dropped} of {pairs} pairs by "
+              f"capacity; device ms over {cfg.n_layers} layers (share of "
+              f"busy {ms['busy']:.3f} ms): "
+              + ", ".join(f"{name} {ms[name]:.3f} "
+                          f"({ms[name] / ms['busy']:.3f})"
+                          for name in (*MOE_PARTS, "other")))
+        report[part] = dict(ms, dropped=dropped, pairs=pairs, cap=first.cap)
+        del routings, first
+    return report
+
+
 def _row_launches(by_head_dim: dict) -> dict:
     """The launches of each attention row of ``ATTN_ROWS`` but ``mha_f32``
     (whose count is the f32 smoke run's): its kernel's launches at its head
@@ -2278,8 +2456,9 @@ def phase_serve() -> dict:
     """Returns the kernels' launch counts read around the serve runs: the
     wrappers' (the attention rows of ``ATTN_ROWS`` counted as their
     kernel's own launches at their head dim, ``mha`` the tensor-core
-    kernel's at head dim 128) and, as ``mha_f32``, the CUDA-core attention
-    kernel's launches in the f32 smoke run."""
+    kernel's at head dim 128 in qwen3-14b and qwen3-moe-30b-a3b,
+    ``mha_d80`` at zamba2-2.7b's 80) and, as ``mha_f32``, the CUDA-core
+    attention kernel's launches in the qwen3-14b-smoke f32 run."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import BY_HEAD_DIM
@@ -2291,23 +2470,27 @@ def phase_serve() -> dict:
     waves = -(-SERVE["requests"] // SERVE["slots"])
     launches = {"wkv6": 0, "pchase": 0,
                 **{name: 0 for name in ATTN_ROWS.values()}}
-    for arch, kernel in (("qwen3-14b", "mha"), ("rwkv6-3b", "wkv6")):
+    for arch, kernel in SERVED:
         cfg = get_config(arch)
+        per_wave = _attention_per_wave(cfg) if kernel == "mha" \
+            else cfg.n_layers
         ops.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
         res = serve.main(_serve_argv(arch))
         counts = {fn.__name__: fn.launches for fn in ops.LLM_WRAPPERS}
         routes = dict(ATTN_LAUNCHES)
         by_d = {route: dict(c) for route, c in BY_HEAD_DIM.items()}
-        want = {"mha": 0, "wkv6": 0, "pchase": 0,
-                kernel: cfg.n_layers * waves}
+        want = {"mha": 0, "wkv6": 0, "pchase": 0, kernel: per_wave * waves}
         check(counts == want == res["launches"],
               f"{arch}: launches {counts} (reported {res['launches']}), "
               f"expected {want}")
-        # every mha call of the bf16, head-dim-128 model is a launch of the
-        # tensor-core kernel at head dim 128, counted where it launches; no
-        # launch at another head dim or of the CUDA-core kernel
+        # every mha call of a bf16 model is a launch of the tensor-core
+        # kernel at the model's head dim (128, or zamba2's 80), counted
+        # where it launches; no launch at another head dim or of the
+        # CUDA-core kernel
         want_routes = {"sm90": want["mha"], "cuda_core": 0}
-        want_by_d = {"sm90": {128: want["mha"]} if want["mha"] else {},
+        want_by_d = {"sm90": ({cfg.resolved_head_dim: want["mha"]}
+                              if want["mha"] else {}),
                      "cuda_core": {}}
         check(routes == want_routes and by_d == want_by_d,
               f"{arch}: attention kernel launches {routes}, by head dim "
@@ -2319,13 +2502,12 @@ def phase_serve() -> dict:
         check(all(o.shape == (SERVE["max_new"],) for o in res["outputs"]),
               f"{arch}: not {SERVE['max_new']} tokens for every request")
         eng = res["engine"]
-        n_params = sum(t.numel() for name, t in eng.params.items()
-                       if name != "layers") + sum(
-            t.numel() for layer in eng.params["layers"]
-            for t in layer.values())
-        print(f"[serve] {arch}: {n_params / 1e9:.2f} B parameters in "
-              f"bfloat16; peak memory "
-              f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; "
+        n_params = _numel(eng.params)
+        print(f"[serve] {arch}: {cfg.n_layers} layers, {n_params / 1e9:.4f} "
+              f"B parameters in bfloat16 ({cfg.param_count() / 1e9:.4f} B by "
+              f"ModelConfig.param_count), "
+              f"{n_params * 2 / 1e9:.2f} GB; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
               f"wall {res['wall_s']:.3f}s, {res['tok_per_s']:.1f} tok/s, "
               f"prefill {res['prefill_s']:.3f}s ({eng.stats['prefills']} "
               f"waves), decode {res['decode_s']:.3f}s "
@@ -2337,7 +2519,7 @@ def phase_serve() -> dict:
         check(np.array_equal(again, np.stack(res["outputs"][:SERVE["slots"]])),
               f"{arch}: a second run of the first wave gave other tokens")
         # the wave's prefill goes through the tensor-core kernel once a
-        # layer (the model runs bf16 at head dim 128), or through each WKV6
+        # layer (or a site of zamba2's shared block), or through each WKV6
         # kernel once a layer; a profiled wave whose device events fall
         # short of that, or of its parts between markers, is taken again,
         # up to PROFILER_SESSIONS waves, as device_ms takes sessions
@@ -2351,13 +2533,13 @@ def phase_serve() -> dict:
             ran = {name: sum(n for kname, (_, n) in parts["prefill"].items()
                              if name in kname)
                    for name in names} if parts else {}
-            if ran and all(n == cfg.n_layers for n in ran.values()):
+            if ran and all(n == per_wave for n in ran.values()):
                 SESSIONS["whole"] += 1
                 break
             SESSIONS["retaken"] += 1
             print(f"[profile] {arch}: profiled wave {attempt} of "
                   f"{PROFILER_SESSIONS} not whole (kernels in its prefill "
-                  f"{ran or 'not split'}, expected {cfg.n_layers} each)")
+                  f"{ran or 'not split'}, expected {per_wave} each)")
         else:
             raise SmokeFailure(f"{arch}: no whole profiled wave in "
                                f"{PROFILER_SESSIONS}")
@@ -2370,6 +2552,8 @@ def phase_serve() -> dict:
                   f"({name_ms / ran[name]:.4f} ms each), "
                   f"{name_ms / busy_ms:.4f} of the prefill's device busy "
                   f"time {busy_ms:.3f} ms")
+        if cfg.family == "moe":
+            _moe_report(eng, prompts)
         with torch.no_grad():
             logits, _ = eng.model.prefill(
                 eng.params, {"tokens": torch.as_tensor(
@@ -2384,11 +2568,9 @@ def phase_serve() -> dict:
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-    # the serve runs are bf16 at head dim 128, so the CUDA-core attention
-    # kernel runs in the f32 smoke configs' prefill on the card
-    for arch, overrides in (("qwen3-14b-smoke", dict(n_heads=6,
-                                                      n_kv_heads=2)),
-                            ("rwkv6-3b-smoke", {})):
+    # the serve runs are bf16, so the CUDA-core attention kernel runs in
+    # the f32 smoke configs' prefill on the card
+    for arch, overrides in SMOKE_CONFIGS:
         ops.reset_launches()
         err = _smoke_agreement(arch, overrides)
         routes = dict(ATTN_LAUNCHES)
@@ -2400,9 +2582,10 @@ def phase_serve() -> dict:
               f"{arch}: attention kernel launches {routes}, f32 by head dim "
               f"{f32_by_d}, for {ops.mha.launches} mha calls (half of them "
               f"on the CPU)")
-        if arch == "qwen3-14b-smoke":
+        if get_config(arch).family != "ssm":
             check(routes["cuda_core"] > 0,
                   f"{arch}: the CUDA-core attention kernel never launched")
+        if arch == "qwen3-14b-smoke":
             launches["mha_f32"] = routes["cuda_core"]
         for name, count in _row_launches(BY_HEAD_DIM).items():
             launches[name] += count
@@ -2460,10 +2643,12 @@ def main() -> int:
         "wkv6": ("cuda", "src/repro_torch/kernels/csrc/wkv6.cu"),
     }
     paths = {**{name: None for name in ATTN_ROWS.values()},
-             "mha": "serve qwen3-14b", "wkv6": "serve rwkv6-3b",
+             "mha": "serve qwen3-14b, qwen3-moe-30b-a3b",
+             "mha_d80": "serve zamba2-2.7b", "wkv6": "serve rwkv6-3b",
              "pchase": None,
              "mha_f32": "qwen3-14b-smoke f32 prefill on the card",
-             "mha_f32_d16": "qwen3-14b-smoke f32 prefill on the card"}
+             "mha_f32_d16": "qwen3-14b-smoke, qwen3-moe-30b-a3b-smoke, "
+                            "zamba2-2.7b-smoke f32 prefill on the card"}
     kernels = []
     for name, row in rows.items():
         route, source = sources.get(

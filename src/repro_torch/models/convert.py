@@ -12,7 +12,7 @@ import torch
 
 __all__ = ["params_from_numpy"]
 
-_FAMILIES = ("dense", "ssm")
+_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -23,21 +23,37 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device)
 
 
+def _tree(tree, device, pick=lambda a: a):
+    """A nested dictionary of arrays -> the same of tensors, each leaf
+    passed through ``pick`` first."""
+    if isinstance(tree, dict):
+        return {name: _tree(sub, device, pick) for name, sub in tree.items()}
+    return _tensor(pick(tree), device)
+
+
+def _leaves(tree, prefix: str = "layers"):
+    if isinstance(tree, dict):
+        for name, sub in tree.items():
+            yield from _leaves(sub, f"{prefix}/{name}")
+    else:
+        yield prefix, tree
+
+
 def params_from_numpy(cfg, tree: dict, device: str = "cuda") -> dict:
     """The reference's parameter tree as numpy arrays, with layers stacked
     on a leading axis under ``"layers"`` -> the port's parameters (one
-    dictionary per layer), on ``device``, dtypes kept."""
+    dictionary per layer, nested dictionaries such as a layer's ``moe`` or
+    zamba2's ``shared`` kept nested), on ``device``, dtypes kept."""
     if cfg.family not in _FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r}: only "
                                   f"{_FAMILIES} are ported")
-    params = {name: _tensor(a, device) for name, a in tree.items()
+    params = {name: _tree(sub, device) for name, sub in tree.items()
               if name != "layers"}
     layers = tree["layers"]
-    for name, a in layers.items():
+    for name, a in _leaves(layers):
         if np.shape(a)[0] != cfg.n_layers:
-            raise ValueError(f"layers/{name}: leading axis {np.shape(a)[0]}, "
+            raise ValueError(f"{name}: leading axis {np.shape(a)[0]}, "
                              f"expected {cfg.n_layers} layers")
-    params["layers"] = [{name: _tensor(a[i], device)
-                         for name, a in layers.items()}
+    params["layers"] = [_tree(layers, device, lambda a, i=i: a[i])
                         for i in range(cfg.n_layers)]
     return params

@@ -1,11 +1,12 @@
 """Unified model API + registry.
 
 ``get_model(cfg)`` returns a ``Model`` facade over the family's backend:
-``dense`` -> ``transformer``, ``ssm`` -> ``rwkv6``.  Parameters are plain
-dictionaries of tensors passed explicitly to every entry point.  The
-families whose modules are not ported raise ``NotImplementedError`` naming
-what is missing; ``param_specs`` and ``input_specs`` belong to the sharding
-and dry-run slice and are not here.
+``dense`` and ``moe`` -> ``transformer``, ``ssm`` -> ``rwkv6``, ``hybrid``
+-> ``zamba2``.  Parameters are plain dictionaries of tensors passed
+explicitly to every entry point.  The audio and vlm families raise
+``NotImplementedError`` naming what is missing (``transformer``);
+``param_specs`` and ``input_specs`` belong to the sharding and dry-run
+slice and are not here.
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ from typing import Any
 
 import torch
 
-from . import rwkv6, transformer
+from . import rwkv6, transformer, zamba2
 from .transformer import Runtime
 
 __all__ = ["Model", "Runtime", "get_model"]
@@ -23,8 +24,8 @@ _BACKENDS = {
     "dense": transformer, "moe": transformer, "audio": transformer,
     "vlm": transformer,
     "ssm": rwkv6,
+    "hybrid": zamba2,
 }
-_MISSING = {"hybrid": "models/zamba2.py (and models/mamba2.py)"}
 
 
 @dataclass(frozen=True)
@@ -66,9 +67,6 @@ class Model:
 
 
 def get_model(cfg) -> Model:
-    if cfg.family in _MISSING:
-        raise NotImplementedError(f"family {cfg.family!r}: "
-                                  f"{_MISSING[cfg.family]} is not ported")
     try:
         backend = _BACKENDS[cfg.family]
     except KeyError as e:

@@ -1,5 +1,6 @@
 """Decoder-only transformer for the dense family (qwen3, codeqwen1.5,
-internlm2): GQA with optional qk_norm, RoPE, SwiGLU, a KV cache.
+internlm2) and the moe family (qwen3-moe): GQA with optional qk_norm, RoPE,
+a SwiGLU or mixture-of-experts FFN (``models.moe``), a KV cache.
 
 The port of ``repro.models.transformer`` for serving.  Layers are a Python
 loop over per-layer parameter dictionaries where the reference scans a
@@ -8,9 +9,8 @@ one card.  Prefill attention, causal from position 0, goes through the
 flash-attention kernel (``kernels.ops.mha``); decode attention over the
 cache is plain PyTorch, as the reference leaves it outside any kernel.
 
-Not ported: the moe, audio and vlm families, ``forward`` and
-``train_loss`` (each raises ``NotImplementedError`` naming what is
-missing).
+Not ported: the audio and vlm families, ``forward`` and ``train_loss``
+(each raises ``NotImplementedError`` naming what is missing).
 """
 from __future__ import annotations
 
@@ -22,12 +22,12 @@ import torch
 from ..kernels import ops
 from .common import (DTYPES, Initializer, apply_rope, rms_norm, rope_angles,
                      swiglu)
+from .moe import init_moe, moe_ffn
 
 __all__ = ["Runtime", "init", "forward", "train_loss", "prefill",
            "decode_step", "init_cache", "cache_specs"]
 
 _MISSING = {
-    "moe": "models/moe.py (the mixture-of-experts FFN) is not ported",
     "audio": "the codebook embeddings and heads of the audio family are not "
              "ported",
     "vlm": "the prefix-LM mask of the vlm family is not ported, and the "
@@ -38,9 +38,18 @@ _MISSING = {
 @dataclass(frozen=True)
 class Runtime:
     """Execution knobs of training (``forward``, ``train_loss``), which
-    refuse every value while ``train/`` is not ported; serving takes none."""
+    refuse every value while ``train/`` is not ported; serving takes none.
+    ``moe_impl="ep"`` (expert parallelism over a mesh) is refused here."""
 
     remat: str = "none"
+    moe_aux_weight: float = 0.01
+    moe_impl: str = "gspmd"      # gspmd (sorted dispatch) | ep
+
+    def __post_init__(self):
+        if self.moe_impl == "ep":
+            raise NotImplementedError(
+                "moe_impl='ep': models/moe_ep.py (expert parallelism over a "
+                "mesh) and sharding/ are not ported")
 
 
 def _check(cfg) -> None:
@@ -50,7 +59,7 @@ def _check(cfg) -> None:
 
 
 # ------------------------------------------------------------------- init
-def _init_layer(ini: Initializer, cfg) -> dict:
+def init_layer(ini: Initializer, cfg) -> dict:
     d, hd = cfg.d_model, cfg.resolved_head_dim
     nq, nkv = cfg.n_heads, cfg.n_kv_heads
     p = {"ln1": ini.ones(d),
@@ -62,9 +71,12 @@ def _init_layer(ini: Initializer, cfg) -> dict:
         p["q_norm"] = ini.ones(hd)
         p["k_norm"] = ini.ones(hd)
     p["ln2"] = ini.ones(d)
-    p["w1"] = ini.normal(d, cfg.d_ff)
-    p["w3"] = ini.normal(d, cfg.d_ff)
-    p["w2"] = ini.normal(cfg.d_ff, d)
+    if cfg.family == "moe":
+        p["moe"] = init_moe(ini, cfg)
+    else:
+        p["w1"] = ini.normal(d, cfg.d_ff)
+        p["w3"] = ini.normal(d, cfg.d_ff)
+        p["w2"] = ini.normal(cfg.d_ff, d)
     return p
 
 
@@ -77,7 +89,7 @@ def init(cfg, generator: torch.Generator) -> dict:
     if not cfg.tie_embeddings:
         params["head"] = ini.normal(d, v)
     params["final_norm"] = ini.ones(d)
-    params["layers"] = [_init_layer(ini, cfg) for _ in range(cfg.n_layers)]
+    params["layers"] = [init_layer(ini, cfg) for _ in range(cfg.n_layers)]
     return params
 
 
@@ -106,10 +118,12 @@ def _out_proj(p, out, x):
 
 def _ffn(cfg, p, x):
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    if cfg.family == "moe":
+        return x + moe_ffn(p["moe"], h, cfg)[0]
     return x + swiglu(h, p["w1"], p["w3"], p["w2"])
 
 
-def _block_prefill(cfg, p, x):
+def block_prefill(cfg, p, x):
     """One layer over the prompt; returns (out, k, v) for the cache."""
     pos = torch.arange(x.shape[1], device=x.device)
     q, k, v = _qkv(cfg, p, x, pos)
@@ -117,7 +131,7 @@ def _block_prefill(cfg, p, x):
     return _ffn(cfg, p, x + _out_proj(p, out, x)), k, v
 
 
-def _block_decode(cfg, p, x, ck, cv, cur_len: int):
+def block_decode(cfg, p, x, ck, cv, cur_len: int):
     """One layer, one token; writes its k and v into the cache in place."""
     bsz, tq, _ = x.shape
     hd, hq, hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
@@ -193,7 +207,7 @@ def prefill(cfg, params, batch, max_len: int):
     x = _embed(cfg, params, tokens)
     cache = init_cache(cfg, bsz, max_len, dtype=x.dtype, device=x.device)
     for layer, p in enumerate(params["layers"]):
-        x, k, v = _block_prefill(cfg, p, x)
+        x, k, v = block_prefill(cfg, p, x)
         cache["k"][layer, :, :seq] = k
         cache["v"][layer, :, :seq] = v
     cache["len"] = seq
@@ -212,7 +226,7 @@ def decode_step(cfg, params, batch, cache):
                          f"{cache['k'].shape[2]}")
     x = _embed(cfg, params, batch["tokens"])          # (B, 1, d)
     for layer, p in enumerate(params["layers"]):
-        x = _block_decode(cfg, p, x, cache["k"][layer], cache["v"][layer],
+        x = block_decode(cfg, p, x, cache["k"][layer], cache["v"][layer],
                           cur)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     cache["len"] = cur + 1

@@ -2,9 +2,10 @@
 
 * ``Engine.serve`` with greedy sampling gives the reference ``Engine``'s
   tokens, on the same converted float32 weights and requests (two waves,
-  the second part-full), for both ported families.
+  the second part-full), for the dense, ssm, moe and hybrid families.
 * ``launch.serve.main(... --device cpu)`` returns its numbers, and its
-  prefill went through the family's kernel wrapper once per layer and wave.
+  prefill went through the family's kernel wrapper once per layer (once per
+  site of the shared block for hybrid) and wave.
 * The families, flags and entry points that are not ported raise
   ``NotImplementedError`` naming the missing module, and launch nothing.
 """
@@ -22,12 +23,14 @@ from repro.serve.engine import Engine as JEngine
 from repro.serve.engine import ServeConfig as JServeConfig
 from repro_torch.kernels import ops
 from repro_torch.launch import serve as launch_serve
-from repro_torch.models import Runtime, get_model
+from repro_torch.models import Runtime, get_model, zamba2
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.serve import Engine, ServeConfig
 
 ARCHS = {"qwen3-14b-smoke": dict(n_heads=6, n_kv_heads=2),
-         "rwkv6-3b-smoke": {}}
+         "rwkv6-3b-smoke": {},
+         "qwen3-moe-30b-a3b-smoke": {},
+         "zamba2-2.7b-smoke": {}}
 
 
 @pytest.mark.parametrize("arch", list(ARCHS))
@@ -54,7 +57,9 @@ def test_greedy_serve_tokens_equal_reference(arch):
 
 
 @pytest.mark.parametrize("arch,kernel", [("qwen3-14b-smoke", "mha"),
-                                         ("rwkv6-3b-smoke", "wkv6")])
+                                         ("rwkv6-3b-smoke", "wkv6"),
+                                         ("qwen3-moe-30b-a3b-smoke", "mha"),
+                                         ("zamba2-2.7b-smoke", "mha")])
 def test_launcher_returns_numbers_and_counts_launches(arch, kernel, capsys):
     ops.reset_launches()
     res = launch_serve.main(["--arch", arch, "--device", "cpu",
@@ -63,8 +68,10 @@ def test_launcher_returns_numbers_and_counts_launches(arch, kernel, capsys):
                              "--slots", "4"])
     cfg = tconfigs.get_config(arch)
     waves = 2
+    per_wave = zamba2.n_sites(cfg) if cfg.family == "hybrid" \
+        else cfg.n_layers
     assert res["launches"] == {"mha": 0, "wkv6": 0, "pchase": 0,
-                               kernel: cfg.n_layers * waves}
+                               kernel: per_wave * waves}
     assert res["new_tokens"] == 6 * 4 == sum(o.size for o in res["outputs"])
     assert res["arch"] == arch and res["device"] == "cpu"
     assert res["wall_s"] > 0 and res["tok_per_s"] > 0
@@ -82,13 +89,11 @@ def _unported_calls():
     tokens = {"tokens": torch.zeros(1, 4, dtype=torch.long)}
     argv = ["--arch", "qwen3-14b-smoke", "--device", "cpu"]
     return {
-        "moe": (lambda: model("qwen3-moe-30b-a3b-smoke").init(device="cpu"),
-                "models/moe.py"),
         "audio": (lambda: model("musicgen-large-smoke").init(device="cpu"),
                   "codebook"),
         "vlm": (lambda: model("paligemma-3b-smoke").init(device="cpu"),
                 "prefix-LM"),
-        "hybrid": (lambda: model("zamba2-2.7b-smoke"), "models/zamba2.py"),
+        "moe-ep": (lambda: Runtime(moe_impl="ep"), "moe_ep.py"),
         "forward": (lambda: dense.forward({}, tokens), "train/"),
         "train_loss": (lambda: dense.train_loss({}, tokens), "train/"),
         "rwkv-forward": (lambda: model("rwkv6-3b-smoke").forward({}, tokens),
@@ -101,7 +106,7 @@ def _unported_calls():
         "ckpt-dir": (lambda: launch_serve.main(argv + ["--ckpt-dir", "x"]),
                      "checkpoint/"),
         "convert": (lambda: params_from_numpy(
-            tconfigs.get_config("qwen3-moe-30b-a3b-smoke"), {"layers": {}},
+            tconfigs.get_config("musicgen-large-smoke"), {"layers": {}},
             device="cpu"), "only"),
     }
 
