@@ -112,8 +112,15 @@ to a plain version):
              slices of at most 128 at K = V = 192 and K 160 with V 96) and
              ``ops.pchase`` at the shapes the serve phase gives them (and
              attention at head dim 256 also at paligemma-3b's head layout,
-             and at the served moe and hybrid models' heads: 32 on 4 at
-             d 128, 32 on 32 at d 80),
+             and at the served moe, hybrid and audio models' heads: 32 on 4
+             at d 128, 32 on 32 at d 80, 32 on 32 at d 64); the prefix-LM
+             mask (``prefix_len``) at paligemma-3b's served prefill (8 on 1
+             at d 256, S 768, P 256), at P = S, at P inside a kv tile (S 448
+             P 200; d 64 P 192), on a ragged prompt (S 500, P 100), and in
+             f32 at the vlm smoke config's prefill (4 on 1 and 4 on 4 at
+             d 16, S 108, P 8) and at d 64 (P 256), each also counted by
+             prefix where its kernel launches, with SDPA under the
+             equivalent boolean mask as the yardstick,
              against their plain versions (tolerances at each check; the
              tensor-core kernel also against the plain emulation of its own
              numerics), with CUDA-event times, device times (both attention
@@ -124,8 +131,12 @@ to a plain version):
 5. serve   — ``repro_torch.launch.serve.main`` at full width and depth in
              bfloat16 for qwen3-14b (dense), rwkv6-3b (ssm),
              qwen3-moe-30b-a3b (moe, 30.5 B parameters, after the others
-             are freed) and zamba2-2.7b (hybrid) (8 requests of 512
-             tokens, 16 new tokens each, 4 slots): the launch counts read
+             are freed), zamba2-2.7b (hybrid), musicgen-large (audio, 4
+             codebooks a position, 16 new frames of 4 ids) and
+             paligemma-3b (vlm, 256 patches ahead of each prompt, every
+             ``mha`` with the patches as the prefix, max_len 784) (8
+             requests of 512 tokens, 16 new tokens each, 4 slots): the
+             launch counts read
              around each call alone (one ``mha`` or ``wkv6`` per layer and
              wave, zamba2's one ``mha`` per site of its shared block; every
              ``mha`` a launch of the tensor-core kernel at the model's head
@@ -145,9 +156,10 @@ to a plain version):
              profiled prefill and decode step with the moe FFN's parts
              (routing, dispatch, expert GEMMs, combine) split at markers,
              their device time and shares, and the pairs layer 0 drops by
-             capacity; then the four smoke configs in f32 on the card
+             capacity; then the six smoke configs in f32 on the card
              (where the CUDA-core attention kernel runs, at head dim 16 on
-             its d 32 instantiation) against the same weights on the CPU.
+             its d 32 instantiation, with a prefix of 8 for the vlm one)
+             against the same weights on the CPU.
 
 The last two lines of standard output are the kernels summary and the
 device line, each one JSON object.  Exits non-zero without them when there
@@ -1822,12 +1834,22 @@ OLD_BF16_ATOL = 2e-3
 # padded to 304), 384 and 512 (32-key tiles in bf16) causal, 512 full, and
 # 640 causal (two column slices of the d 320 instantiation, each reading q
 # and k in two chunks); and bf16 at the heads of the served moe and hybrid
-# models (32 query heads on 4 kv heads at d 128, 32 on 32 at d 80).
+# models (32 query heads on 4 kv heads at d 128, 32 on 32 at d 80) and of
+# musicgen-large (32 on 32 at d 64).  A seventh entry is a prefix of P
+# positions (the prefix-LM mask, causal past it): paligemma-3b's served
+# prefill (8 on 1 at d 256, 256 patches and 512 text positions, P 256 on
+# a 64-key tile edge), P = S, P inside a kv tile at a length that is no
+# multiple of 128, a ragged prompt with P 100, P 192 inside a 128-key tile
+# at d 64; in f32 the smoke configs' own prefill (4 on 1 and 4 on 4 at
+# d 16, P 8, the ragged 108 positions of 8 patches and 100 tokens) and
+# P 256 at d 64 at the serving heads.
 SERVE_HEADS = (ATTN["hq"], ATTN["hkv"])
 MOE_HEADS = (32, 4)             # qwen3-moe-30b-a3b: a GQA group of 8, d 128
 ZAMBA2_HEADS = (32, 32)         # zamba2-2.7b's shared block: d 80, no GQA
+MUSICGEN_HEADS = (32, 32)       # musicgen-large: d 64, no GQA
 WIDE_DIMS = (300, 384, 512, 640)     # past 256, beside d 320 (row 6c)
 PALIGEMMA_HEADS = (8, 1)
+PALIGEMMA_S = 256 + 512         # its 256 patches ahead of a 512-token prompt
 SMOKE_HEADS = (6, 2)            # phase 5's qwen3-14b-smoke overrides
 ATTN_CASES = ((torch.bfloat16, 512, True, 128, *SERVE_HEADS),
               (torch.float32, 512, True, 128, *SERVE_HEADS),
@@ -1861,11 +1883,21 @@ ATTN_CASES = ((torch.bfloat16, 512, True, 128, *SERVE_HEADS),
               (torch.bfloat16, 512, False, 512, *SERVE_HEADS),
               (torch.float32, 512, False, 512, *SERVE_HEADS),
               (torch.bfloat16, 512, True, 128, *MOE_HEADS),
-              (torch.bfloat16, 512, True, 80, *ZAMBA2_HEADS))
+              (torch.bfloat16, 512, True, 80, *ZAMBA2_HEADS),
+              (torch.bfloat16, 512, True, 64, *MUSICGEN_HEADS),
+              (torch.bfloat16, PALIGEMMA_S, True, 256, *PALIGEMMA_HEADS, 256),
+              (torch.bfloat16, 512, True, 256, *PALIGEMMA_HEADS, 512),
+              (torch.bfloat16, 448, True, 256, *PALIGEMMA_HEADS, 200),
+              (torch.bfloat16, 500, True, 256, *PALIGEMMA_HEADS, 100),
+              (torch.bfloat16, 512, True, 64, *MUSICGEN_HEADS, 192),
+              (torch.float32, 108, True, 16, 4, 1, 8),
+              (torch.float32, 108, True, 16, 4, 4, 8),
+              (torch.float32, 512, True, 64, *SERVE_HEADS, 256))
 # The rows of the kernels line that these cases give, by (head dim, dtype)
 # at the serving heads, length and causal mask; the cases at a served
 # model's own heads add their numbers to their row's ``shapes``.
 ATTN_ROWS = {(128, torch.bfloat16): "mha", (128, torch.float32): "mha_f32",
+             (64, torch.bfloat16): "mha_d64",
              (256, torch.bfloat16): "mha_d256", (32, torch.bfloat16): "mha_d32",
              (80, torch.bfloat16): "mha_d80", (100, torch.bfloat16): "mha_d100",
              (80, torch.float32): "mha_f32_d80",
@@ -1877,17 +1909,26 @@ ATTN_ROWS = {(128, torch.bfloat16): "mha", (128, torch.float32): "mha_f32",
                             f"d{d}"
                 for d in WIDE_DIMS
                 for dtype in (torch.bfloat16, torch.float32)}}
-SERVED_HEAD_ROWS = {(128, torch.bfloat16, *MOE_HEADS): "mha",
-                    (80, torch.bfloat16, *ZAMBA2_HEADS): "mha_d80"}
+# The cases at a served model's own shape, (head dim, dtype, query heads,
+# kv heads, length, prefix) -> the row they add to.
+SERVED_HEAD_ROWS = {(128, torch.bfloat16, *MOE_HEADS, 512, 0): "mha",
+                    (80, torch.bfloat16, *ZAMBA2_HEADS, 512, 0): "mha_d80",
+                    (64, torch.bfloat16, *MUSICGEN_HEADS, 512, 0): "mha_d64",
+                    (256, torch.bfloat16, *PALIGEMMA_HEADS, PALIGEMMA_S,
+                     256): "mha_d256"}
 # WKV6 in f32: 64-term dot products and 32-step chunk sums in other
 # orders; errors scale with the largest output.
 WKV_RTOL = 1e-4
 
 
-def _attn_work(b, hq, hkv, s, d, elem, causal=True) -> tuple[int, int]:
+def _attn_work(b, hq, hkv, s, d, elem, causal=True,
+               prefix=0) -> tuple[int, int]:
     """Bytes (q, k, v read once, o written once) and operations (a multiply
-    and an add for each q.k and p.v term of the attended pairs)."""
-    pairs = s * (s + 1) // 2 if causal else s * s
+    and an add for each q.k and p.v term of the attended pairs: the causal
+    triangle, and with a prefix of P the P (P - 1) / 2 pairs above the
+    diagonal within it)."""
+    pairs = s * (s + 1) // 2 + prefix * (prefix - 1) // 2 if causal \
+        else s * s
     return elem * (2 * b * s * hq * d + 2 * b * s * hkv * d), \
         4 * d * pairs * b * hq
 
@@ -1911,8 +1952,9 @@ def phase_llm_kernels(floor: dict) -> dict:
     from repro_torch.core.probes.runners import random_cycle
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import (
-        BY_HEAD_DIM, SOURCES, column_slices, flash_attention_plain,
-        flash_attention_sm90_plain, instantiation, kernel_for, row_width)
+        BY_HEAD_DIM, BY_PREFIX, SOURCES, column_slices, flash_attention_plain,
+        flash_attention_sm90_plain, instantiation, kernel_for, mask,
+        row_width)
     from repro_torch.kernels.pchase_probe import (pchase_plain,
                                                   pchase_reference)
     from repro_torch.kernels.rwkv6_scan import CHUNK as WKV_CHUNK
@@ -1927,18 +1969,26 @@ def phase_llm_kernels(floor: dict) -> dict:
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
     b = ATTN["b"]
-    for dtype, seq, causal, d, hq, hkv in ATTN_CASES:
+    for dtype, seq, causal, d, hq, hkv, *extra in ATTN_CASES:
+        prefix = extra[0] if extra else 0
         q = randn(b, seq, hq, d, dtype=dtype)
         k, v = (randn(b, seq, hkv, d, dtype=dtype) for _ in range(2))
         route = kernel_for(dtype, d)
-        counts = BY_HEAD_DIM[route]
-        by_d = dict(counts)
-        got = ops.mha(q, k, v, causal=causal)
+        counts, by_p = BY_HEAD_DIM[route], BY_PREFIX[route]
+        by_d, before_p = dict(counts), dict(by_p)
+
+        def call():
+            return ops.mha(q, k, v, causal=causal, prefix_len=prefix)
+
+        got = call()
         torch.cuda.synchronize()
-        want = flash_attention_plain(q, k, v, causal)
+        want = flash_attention_plain(q, k, v, causal, prefix)
         check(counts == {**by_d, d: by_d.get(d, 0) + 1},
               f"mha d={d}: the {route} kernel's count by head dim rose "
               f"at {[x for x in counts if counts[x] != by_d.get(x)]}")
+        check(by_p == {**before_p, prefix: before_p.get(prefix, 0) + 1},
+              f"mha d={d} P={prefix}: the {route} kernel's count by prefix "
+              f"rose at {[x for x in by_p if by_p[x] != before_p.get(x)]}")
         rtol, atol = ATTN_TOL[(route, dtype)]
         vmax = float(v.float().abs().max())
         if dtype == torch.bfloat16:
@@ -1953,7 +2003,8 @@ def phase_llm_kernels(floor: dict) -> dict:
                   + (f", {slices} column slices" if slices > 1 else ""))
         shape = (f"B={b},Hq={hq},Hkv={hkv},S={seq},d={d},"
                  f"{str(dtype).split('.')[-1]},"
-                 f"{'causal' if causal else 'full'}")
+                 + (f"prefix-LM P={prefix}" if prefix
+                    else "causal" if causal else "full"))
         check(got.dtype == dtype and got.shape == q.shape,
               f"mha {shape}: {got.dtype} {tuple(got.shape)}")
         check(torch.allclose(got.float(), want.float(), rtol=rtol, atol=atol),
@@ -1963,7 +2014,8 @@ def phase_llm_kernels(floor: dict) -> dict:
         if dtype == torch.bfloat16:
             e_rtol, e_atol = SM90_EMULATION_TOL
             e_atol *= vmax
-            emu = flash_attention_sm90_plain(q, k, v, causal).float()
+            emu = flash_attention_sm90_plain(q, k, v, causal,
+                                             prefix).float()
             e_diff = (got.float() - emu).abs()
             excess = float((e_diff - e_rtol * emu.abs()).max())
             check(bool((e_diff <= e_rtol * emu.abs() + e_atol).all()),
@@ -1976,14 +2028,22 @@ def phase_llm_kernels(floor: dict) -> dict:
                         f"{float(e_diff.max()):g}, largest excess over rtol "
                         f"{excess:g}, in rows >= S/2 {late:g})")
             del emu, e_diff
-        k_ms = event_ms(lambda: ops.mha(q, k, v, causal=causal))
-        p_ms = event_ms(lambda: flash_attention_plain(q, k, v, causal),
-                        reps=5)
+        k_ms = event_ms(call)
+        p_ms = event_ms(lambda: flash_attention_plain(q, k, v, causal,
+                                                      prefix), reps=5)
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        l_ms = event_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=causal, enable_gqa=True))
+        # the library's yardstick: SDPA with is_causal, or with the
+        # prefix-LM mask as a boolean mask
+        keep = mask(seq, seq, causal, prefix, q.device) if prefix else None
+
+        def library():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=keep, is_causal=causal and not prefix,
+                enable_gqa=True)
+
+        l_ms = event_ms(library)
         nbytes, n_ops = _attn_work(b, hq, hkv, seq, d, q.element_size(),
-                                   causal)
+                                   causal, prefix)
         b_ms, b_by = bound_ms(nbytes, n_ops, BF16_OPS_PER_S
                               if dtype == torch.bfloat16 else FP32_OPS_PER_S)
         old = (f"; share beyond the old atol {OLD_BF16_ATOL:g}: "
@@ -1997,14 +2057,13 @@ def phase_llm_kernels(floor: dict) -> dict:
         row = dict(shape=shape, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
                    bound_by=b_by, library_ms=l_ms, max_abs_err=err,
                    source=SOURCES[route])
-        if seq == ATTN["s"] and causal:
+        served = SERVED_HEAD_ROWS.get((d, dtype, hq, hkv, seq, prefix))
+        if (seq == ATTN["s"] and causal) or served:
             # the kernel's device time beside SDPA's (a row that is no
             # multiple of 16 bytes adds the wrapper's padding copies)
             dev = device_ms({
-                "kernel": (lambda: ops.mha(q, k, v, causal=causal),
-                           1 if row_width(dtype, d) == d else None),
-                "library": (lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=causal, enable_gqa=True), None)})
+                "kernel": (call, 1 if row_width(dtype, d) == d else None),
+                "library": (library, None)})
             row["device_ms"] = dev["kernel"]
             row["library_device_ms"] = dev["library"]
             clock = ""
@@ -2022,15 +2081,15 @@ def phase_llm_kernels(floor: dict) -> dict:
                   f"scaled_dot_product_attention device_ms="
                   f"{row['library_device_ms']:.4f}{clock}")
         name = ATTN_ROWS.get((d, dtype))
-        if seq == ATTN["s"] and causal and hq == ATTN["hq"] and name:
+        if seq == ATTN["s"] and causal and not prefix \
+                and hq == ATTN["hq"] and name:
             rows[name] = row
-        served = SERVED_HEAD_ROWS.get((d, dtype, hq, hkv))
-        if seq == ATTN["s"] and causal and served:
+        if served:
             rows[served].setdefault("shapes", {})[shape] = {
                 key: row[key] for key in (
                     "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms", "library_device_ms", "max_abs_err")}
-        del q, k, v, qt, kt, vt, got, want, diff
+        del q, k, v, qt, kt, vt, got, want, diff, keep
 
     b, h, kd, chunk = (WKV[x] for x in ("b", "h", "k", "chunk"))
     errs = []
@@ -2181,14 +2240,17 @@ def phase_llm_kernels(floor: dict) -> dict:
 # --------------------------------------------------------------------------
 SERVE = dict(requests=8, prompt_len=512, max_new=16, max_len=640, slots=4)
 # The served models, full width and depth, and the wrapper each one's
-# prefill launches: dense, ssm, moe and hybrid.
+# prefill launches: dense, ssm, moe, hybrid, audio and vlm (whose 256
+# patches go ahead of the 512-token prompt, max_len 784).
 SERVED = (("qwen3-14b", "mha"), ("rwkv6-3b", "wkv6"),
-          ("qwen3-moe-30b-a3b", "mha"), ("zamba2-2.7b", "mha"))
+          ("qwen3-moe-30b-a3b", "mha"), ("zamba2-2.7b", "mha"),
+          ("musicgen-large", "mha"), ("paligemma-3b", "mha"))
 # The float32 smoke configs held on the card to the CPU (a GQA group of 3
 # for the dense one, as the CPU tests run it).
 SMOKE_CONFIGS = (("qwen3-14b-smoke", dict(n_heads=6, n_kv_heads=2)),
                  ("rwkv6-3b-smoke", {}), ("qwen3-moe-30b-a3b-smoke", {}),
-                 ("zamba2-2.7b-smoke", {}))
+                 ("zamba2-2.7b-smoke", {}), ("musicgen-large-smoke", {}),
+                 ("paligemma-3b-smoke", {}))
 # Smoke configs on the card against the CPU, float32 on both: the CPU runs
 # the plain versions, the card the kernels and cuBLAS in full float32; the
 # sums differ in order only.
@@ -2264,11 +2326,24 @@ def _profile_wave(arch: str, eng, prompts, unprofiled: dict) -> dict | None:
     return parts
 
 
-def _serve_argv(arch: str) -> list[str]:
-    return ["--arch", arch, "--requests", str(SERVE["requests"]),
+def _max_len(cfg) -> int:
+    """``SERVE``'s max_len, or what a vlm's patches, prompt and new tokens
+    take where that is more."""
+    return max(SERVE["max_len"],
+               cfg.n_patches + SERVE["prompt_len"] + SERVE["max_new"])
+
+
+def _serve_argv(cfg) -> list[str]:
+    return ["--arch", cfg.name, "--requests", str(SERVE["requests"]),
             "--prompt-len", str(SERVE["prompt_len"]), "--max-new",
-            str(SERVE["max_new"]), "--max-len", str(SERVE["max_len"]),
+            str(SERVE["max_new"]), "--max-len", str(_max_len(cfg)),
             "--slots", str(SERVE["slots"]), "--dtype", "bfloat16"]
+
+
+def _output_shape(cfg) -> tuple:
+    """A request's generation: (new,), or (new, K) for audio."""
+    new = SERVE["max_new"]
+    return (new, cfg.n_codebooks) if cfg.family == "audio" else (new,)
 
 
 def _to_card(tree):
@@ -2299,7 +2374,9 @@ def _attention_per_wave(cfg) -> int:
 
 def _smoke_agreement(arch: str, overrides: dict) -> float:
     """Prefill and two decode steps of a float32 smoke config on the card
-    and on the CPU, on the same weights; the largest logit difference."""
+    and on the CPU, on the same weights, in the family's batch layout
+    (audio (2, K, 100) codebook ids and (2, K, 1) steps; vlm 8 patches
+    ahead of 100 tokens); the largest logit difference."""
     from repro_torch.configs import get_config
     from repro_torch.models import get_model
 
@@ -2308,14 +2385,20 @@ def _smoke_agreement(arch: str, overrides: dict) -> float:
     cpu = model.init(seed=0, device="cpu")
     card = _to_card(cpu)
     rng = np.random.default_rng(2)
-    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 100)))
-    steps = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 2, 1)))
+    width = (cfg.n_codebooks,) if cfg.family == "audio" else ()
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (2, *width, 100)))}
+    if cfg.family == "vlm":
+        batch["patches"] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.n_patches, cfg.vision_embed_dim), dtype=np.float32))
+    steps = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                          (2, 2, *width, 1)))
     worst = 0.0
     with torch.no_grad():
         outs = {}
         for dev, params in (("cpu", cpu), ("cuda", card)):
-            logits, cache = model.prefill(params, {"tokens": prompt.to(dev)},
-                                          128)
+            logits, cache = model.prefill(
+                params, {name: t.to(dev) for name, t in batch.items()}, 128)
             seq = [logits.cpu()]
             for tok in steps:
                 logits, cache = model.decode_step(
@@ -2457,14 +2540,17 @@ def phase_serve() -> dict:
     wrappers' (the attention rows of ``ATTN_ROWS`` counted as their
     kernel's own launches at their head dim, ``mha`` the tensor-core
     kernel's at head dim 128 in qwen3-14b and qwen3-moe-30b-a3b,
-    ``mha_d80`` at zamba2-2.7b's 80) and, as ``mha_f32``, the CUDA-core
-    attention kernel's launches in the qwen3-14b-smoke f32 run."""
+    ``mha_d80`` at zamba2-2.7b's 80, ``mha_d64`` at musicgen-large's 64,
+    ``mha_d256`` at paligemma-3b's 256, every one of those with its 256
+    patches as the prefix) and, as ``mha_f32``, the CUDA-core attention
+    kernel's launches in the qwen3-14b-smoke f32 run."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
-    from repro_torch.kernels.flash_attention import BY_HEAD_DIM
+    from repro_torch.kernels.flash_attention import BY_HEAD_DIM, BY_PREFIX
     from repro_torch.kernels.flash_attention import LAUNCHES as ATTN_LAUNCHES
     from repro_torch.kernels.rwkv6_scan import KERNELS as WKV_KERNELS
     from repro_torch.launch import serve
+    from repro_torch.serve.engine import stack
 
     torch.backends.cuda.matmul.allow_tf32 = False    # full f32 (smoke check)
     waves = -(-SERVE["requests"] // SERVE["slots"])
@@ -2476,10 +2562,11 @@ def phase_serve() -> dict:
             else cfg.n_layers
         ops.reset_launches()
         torch.cuda.reset_peak_memory_stats()
-        res = serve.main(_serve_argv(arch))
+        res = serve.main(_serve_argv(cfg))
         counts = {fn.__name__: fn.launches for fn in ops.LLM_WRAPPERS}
         routes = dict(ATTN_LAUNCHES)
         by_d = {route: dict(c) for route, c in BY_HEAD_DIM.items()}
+        by_p = {route: dict(c) for route, c in BY_PREFIX.items()}
         want = {"mha": 0, "wkv6": 0, "pchase": 0, kernel: per_wave * waves}
         check(counts == want == res["launches"],
               f"{arch}: launches {counts} (reported {res['launches']}), "
@@ -2495,12 +2582,20 @@ def phase_serve() -> dict:
         check(routes == want_routes and by_d == want_by_d,
               f"{arch}: attention kernel launches {routes}, by head dim "
               f"{by_d}; expected {want_routes}, {want_by_d}")
+        # every call of the vlm's with its patches as the prefix, every
+        # other model's with none
+        want_by_p = {"sm90": ({cfg.n_patches: want["mha"]}
+                              if want["mha"] else {}),
+                     "cuda_core": {}}
+        check(by_p == want_by_p,
+              f"{arch}: attention kernel launches by prefix {by_p}; "
+              f"expected {want_by_p}")
         counts.pop("mha")
         counts.update(_row_launches(BY_HEAD_DIM))
         for name, count in counts.items():
             launches[name] += count
-        check(all(o.shape == (SERVE["max_new"],) for o in res["outputs"]),
-              f"{arch}: not {SERVE['max_new']} tokens for every request")
+        check(all(o.shape == _output_shape(cfg) for o in res["outputs"]),
+              f"{arch}: not {_output_shape(cfg)} tokens for every request")
         eng = res["engine"]
         n_params = _numel(eng.params)
         print(f"[serve] {arch}: {cfg.n_layers} layers, {n_params / 1e9:.4f} "
@@ -2508,12 +2603,14 @@ def phase_serve() -> dict:
               f"ModelConfig.param_count), "
               f"{n_params * 2 / 1e9:.2f} GB; peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
-              f"wall {res['wall_s']:.3f}s, {res['tok_per_s']:.1f} tok/s, "
+              f"wall {res['wall_s']:.3f}s, {res['tok_per_s']:.1f} tok/s "
+              f"({res['new_tokens']} ids in {res['frames']} positions), "
               f"prefill {res['prefill_s']:.3f}s ({eng.stats['prefills']} "
               f"waves), decode {res['decode_s']:.3f}s "
               f"({eng.stats['decode_steps']} steps); launches {counts}; "
-              f"attention kernels {routes}, by head dim {by_d}")
-        prompts = np.stack(res["requests"][:SERVE["slots"]])
+              f"attention kernels {routes}, by head dim {by_d}, by prefix "
+              f"{by_p}")
+        prompts = stack(res["requests"][:SERVE["slots"]])
         before = dict(eng.stats)
         again = eng.generate_batch(prompts, SERVE["max_new"])
         check(np.array_equal(again, np.stack(res["outputs"][:SERVE["slots"]])),
@@ -2555,11 +2652,11 @@ def phase_serve() -> dict:
         if cfg.family == "moe":
             _moe_report(eng, prompts)
         with torch.no_grad():
-            logits, _ = eng.model.prefill(
-                eng.params, {"tokens": torch.as_tensor(
-                    prompts, dtype=torch.long, device="cuda")},
-                SERVE["max_len"])
-        check(tuple(logits.shape) == (SERVE["slots"], cfg.vocab_size)
+            logits, _ = eng.model.prefill(eng.params, eng._batch(prompts),
+                                          _max_len(cfg))
+        width = (cfg.n_codebooks,) if cfg.family == "audio" else ()
+        check(tuple(logits.shape) == (SERVE["slots"], *width,
+                                      cfg.vocab_size)
               and bool(torch.isfinite(logits).all()),
               f"{arch}: logits {tuple(logits.shape)} not finite or misshapen")
         print(f"[serve] {arch}: greedy tokens of a second run of the first "
@@ -2574,14 +2671,18 @@ def phase_serve() -> dict:
         ops.reset_launches()
         err = _smoke_agreement(arch, overrides)
         routes = dict(ATTN_LAUNCHES)
-        head_dim = get_config(arch).replace(**overrides).resolved_head_dim
+        smoke_cfg = get_config(arch).replace(**overrides)
+        head_dim = smoke_cfg.resolved_head_dim
         f32_by_d = dict(BY_HEAD_DIM["cuda_core"])
+        f32_by_p = dict(BY_PREFIX["cuda_core"])
         check(routes["sm90"] == 0 and routes["cuda_core"] == ops.mha.launches
               // 2 and f32_by_d == ({head_dim: routes["cuda_core"]}
-                                    if routes["cuda_core"] else {}),
+                                    if routes["cuda_core"] else {})
+              and f32_by_p == ({smoke_cfg.n_patches: routes["cuda_core"]}
+                               if routes["cuda_core"] else {}),
               f"{arch}: attention kernel launches {routes}, f32 by head dim "
-              f"{f32_by_d}, for {ops.mha.launches} mha calls (half of them "
-              f"on the CPU)")
+              f"{f32_by_d}, by prefix {f32_by_p}, for {ops.mha.launches} mha "
+              f"calls (half of them on the CPU)")
         if get_config(arch).family != "ssm":
             check(routes["cuda_core"] > 0,
                   f"{arch}: the CUDA-core attention kernel never launched")
@@ -2592,7 +2693,7 @@ def phase_serve() -> dict:
         print(f"[serve] {arch} float32 on the card vs the CPU: logits within "
               f"rtol=atol={SMOKE_TOL} (max_abs_err={err:g}); attention "
               f"kernel launches on the card {routes}, f32 by head dim "
-              f"{f32_by_d}")
+              f"{f32_by_d}, by prefix {f32_by_p}")
     return launches
 
 
@@ -2645,10 +2746,14 @@ def main() -> int:
     paths = {**{name: None for name in ATTN_ROWS.values()},
              "mha": "serve qwen3-14b, qwen3-moe-30b-a3b",
              "mha_d80": "serve zamba2-2.7b", "wkv6": "serve rwkv6-3b",
+             "mha_d64": "serve musicgen-large",
+             "mha_d256": "serve paligemma-3b (prefix-LM, P 256)",
              "pchase": None,
              "mha_f32": "qwen3-14b-smoke f32 prefill on the card",
              "mha_f32_d16": "qwen3-14b-smoke, qwen3-moe-30b-a3b-smoke, "
-                            "zamba2-2.7b-smoke f32 prefill on the card"}
+                            "zamba2-2.7b-smoke, musicgen-large-smoke, "
+                            "paligemma-3b-smoke (prefix-LM, P 8) f32 "
+                            "prefill on the card"}
     kernels = []
     for name, row in rows.items():
         route, source = sources.get(

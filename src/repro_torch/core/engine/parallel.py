@@ -285,7 +285,9 @@ class ParallelPool:
         return _Worker(proc, parent)
 
     def close(self) -> None:
-        """Stop all workers and unlink every pool segment (idempotent)."""
+        """Stop all workers, reap them (a worker still alive 5 s after its
+        stop is terminated, and 5 s after that killed, and joined), and
+        unlink every pool segment (idempotent)."""
         if self._closed:
             return
         self._closed = True
@@ -309,6 +311,10 @@ class ParallelPool:
             w.proc.join(timeout=5.0)
             if w.proc.is_alive():
                 w.proc.terminate()
+                w.proc.join(timeout=5.0)
+            if w.proc.is_alive():
+                w.proc.kill()
+                w.proc.join()
         self._sweep_segments()
 
     def __enter__(self) -> "ParallelPool":

@@ -33,8 +33,8 @@ _SIGNATURES = {
     "pchase_batch": ((_P, _P, _P, _I, _I, _P), _I),
     "eviction_batch": ((_P, _P, _P, _P, _P, _I, _I, _I, _P), _I),
     "chase_floor": ((_P, _I, _I, _I, _I, _P, _P), _I),
-    "flash_attention_fwd": ((_P,) * 4 + (_I,) * 8 + (_P,), _I),
-    "flash_attention_sm90_fwd": ((_P,) * 4 + (_I,) * 8 + (_P,), _I),
+    "flash_attention_fwd": ((_P,) * 4 + (_I,) * 9 + (_P,), _I),
+    "flash_attention_sm90_fwd": ((_P,) * 4 + (_I,) * 9 + (_P,), _I),
     "stream_read_fwd": ((_P,) * 4 + (_L, _L, _P), _I),
     "stream_write_fwd": ((_P, _P, _L, _P), _I),
     "wkv6_fwd": ((_P,) * 8 + (_L,) + (_I,) * 6 + (_P,), _I),

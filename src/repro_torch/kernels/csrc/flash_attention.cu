@@ -9,7 +9,11 @@
 //
 // What it computes: o = softmax(q k^T / sqrt(d)) v per (batch, query head),
 // query head h reading kv head h / (Hq / Hkv), with the causal mask
-// row >= col counted from position 0.  Inputs are float32 in the model
+// row >= col counted from position 0, or the prefix-LM mask
+// row >= col || (row < P && col < P) when a prefix of P > 0 positions is
+// given (head dims up to 256, causal only: a query tile that starts below
+// P walks the kv tiles up to the later of its diagonal and the last tile
+// that holds a key below P).  Inputs are float32 in the model
 // layout (B, S, H, ld), contiguous, and so is the output; ld, the row width
 // in memory, is the head dim d rounded up to a multiple of 4 by the
 // wrapper, whose extra columns are zeros.  The kernel runs the smallest
@@ -204,7 +208,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
                      int hq, int hkv, int sq, int sk, int ld, int causal,
-                     float scale_log2) {
+                     int prefix, float scale_log2) {
   using T = Tile<D>;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -232,7 +236,11 @@ __global__ void __launch_bounds__(kThreads, 2)
   const size_t tile_stride = static_cast<size_t>(T::kBN) * kv_stride;
 
   int n_kt = sk / T::kBN;
-  if (causal) n_kt = min(n_kt, (q0 + T::kBM - 1) / T::kBN + 1);
+  if (causal) {
+    int end = (q0 + T::kBM - 1) / T::kBN + 1;
+    if (q0 < prefix) end = max(end, (prefix + T::kBN - 1) / T::kBN);
+    n_kt = min(n_kt, end);
+  }
 
   // Q with K's first tile, then V's: K and V each have one buffer, and
   // each is refilled while the other product runs
@@ -260,8 +268,9 @@ __global__ void __launch_bounds__(kThreads, 2)
 
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * T::kBN;
-    // K's tile kt is here; every warp attends to key k0 (k0 <= q0 on the
-    // causal loop, and the block's rows start at q0)
+    // K's tile kt is here; every row attends to key 0 of tile 0, so its
+    // running max is finite from the first tile on (a tile past the
+    // diagonal that a prefix adds may hold no key a row attends to)
     {
       // S = Q K^T: rows trow + i, columns tx + 16 jj
       float s[T::kTR][T::kTC];
@@ -291,8 +300,11 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
         for (int i = 0; i < T::kTR; ++i)
 #pragma unroll
-          for (int jj = 0; jj < T::kTC; ++jj)
-            if (k0 + tx + 16 * jj > q0 + trow + i) s[i][jj] = -INFINITY;
+          for (int jj = 0; jj < T::kTC; ++jj) {
+            // col > row && (row >= P || col >= P)
+            const int col = k0 + tx + 16 * jj;
+            if (col > max(q0 + trow + i, prefix - 1)) s[i][jj] = -INFINITY;
+          }
       }
 
       // online softmax over the row's 16 lanes, in log2 units
@@ -304,7 +316,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
         for (int off = 8; off > 0; off >>= 1)
           mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-        const float m_new = fmaxf(m[i], mx);      // finite: key k0 is seen
+        const float m_new = fmaxf(m[i], mx);      // finite: key 0 was seen
         const float mc = m_new * scale_log2;
         const float alpha = ex2(m[i] * scale_log2 - mc);
         float sum = 0.0f;
@@ -412,7 +424,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 template <int D>
 int launch(const float* q, const float* k, const float* v, float* o, int d,
            int ld, int b, int hq, int hkv, int sq, int sk, int causal,
-           cudaStream_t stream) {
+           int prefix, cudaStream_t stream) {
   using T = Tile<D>;
   // per device, set once: the shared-memory opt-in above 48 KB, and the
   // whole of the SM's 228 KB as shared memory for two blocks
@@ -439,7 +451,7 @@ int launch(const float* q, const float* k, const float* v, float* o, int d,
   const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(d));
   const dim3 grid(static_cast<unsigned>(heads), tiles);
   flash_fwd_kernel<D><<<grid, kThreads, T::kBytes, stream>>>(
-      q, k, v, o, hq, hkv, sq, sk, ld, causal, scale_log2);
+      q, k, v, o, hq, hkv, sq, sk, ld, causal, prefix, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -802,13 +814,18 @@ int launch_wide(const float* q, const float* k, const float* v, float* o,
 // whose columns past d are zeros; sq and sk multiples of 64; every pointer
 // 16-byte aligned.  The instantiation is the smallest of 32, 64, 128, 256,
 // 320, 384, 448 and 512 that holds ld, past 512 the one that holds
-// slice_width(ld).
+// slice_width(ld).  prefix_len, 0 for none, is the prefix-LM mask's P
+// (0 <= P <= sq): only with causal and ld <= 256 (the wide kernel takes
+// none).
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, int b, int hq,
                                    int hkv, int sq, int sk, int d, int ld,
-                                   int causal, void* stream) {
+                                   int causal, int prefix_len, void* stream) {
   if (hkv <= 0 || hq % hkv != 0 || sq % 64 != 0 || sk % 64 != 0 || d < 1 ||
       ld < d || ld % 4 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (prefix_len < 0 || prefix_len > sq ||
+      (prefix_len > 0 && (!causal || ld > 256)))
     return static_cast<int>(cudaErrorInvalidValue);
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) %
@@ -821,13 +838,17 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   auto* of = static_cast<float*>(o);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (ld <= 32)
-    return launch<32>(qf, kf, vf, of, d, ld, b, hq, hkv, sq, sk, causal, s);
+    return launch<32>(qf, kf, vf, of, d, ld, b, hq, hkv, sq, sk, causal,
+                       prefix_len, s);
   if (ld <= 64)
-    return launch<64>(qf, kf, vf, of, d, ld, b, hq, hkv, sq, sk, causal, s);
+    return launch<64>(qf, kf, vf, of, d, ld, b, hq, hkv, sq, sk, causal,
+                       prefix_len, s);
   if (ld <= 128)
-    return launch<128>(qf, kf, vf, of, d, ld, b, hq, hkv, sq, sk, causal, s);
+    return launch<128>(qf, kf, vf, of, d, ld, b, hq, hkv, sq, sk, causal,
+                       prefix_len, s);
   if (ld <= 256)
-    return launch<256>(qf, kf, vf, of, d, ld, b, hq, hkv, sq, sk, causal, s);
+    return launch<256>(qf, kf, vf, of, d, ld, b, hq, hkv, sq, sk, causal,
+                       prefix_len, s);
   const int w = slice_width(ld);
   if (w <= 320)
     return launch_wide<320>(qf, kf, vf, of, d, ld, b, hq, hkv, sq, sk,

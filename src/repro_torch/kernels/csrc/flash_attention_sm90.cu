@@ -10,7 +10,9 @@
 //
 // What it computes: o = softmax(q k^T / sqrt(d)) v per (batch, query head),
 // query head h reading kv head h / (Hq / Hkv), with the causal mask
-// row >= col counted from position 0.  q (B, Sq, Hq, d), k and v
+// row >= col counted from position 0, or the prefix-LM mask
+// row >= col || (row < P && col < P) when a prefix of P > 0 positions is
+// given (head dims up to 256, causal only).  q (B, Sq, Hq, d), k and v
 // (B, Sk, Hkv, d), o (B, Sq, Hq, d), all bfloat16 and contiguous; Sq and Sk
 // multiples of 64.  The running max m, the running sum l and the
 // accumulator stay in float32; the unnormalised probabilities are rounded
@@ -64,6 +66,17 @@
 //   only on tiles that reach the diagonal or the edge; at 64-key tiles the
 //   first consumer skips the block's last causal tile, which lies wholly
 //   above its rows.
+// * With a prefix of P positions a unit whose rows start below P walks the
+//   kv tiles up to the later of its diagonal and the last tile that holds
+//   a key below P; the mask keeps a key past the diagonal only for rows
+//   and keys both below P (it masks col > max(row, P - 1)), and at 64-key
+//   tiles a consumer skips a tile past its diagonal
+//   only where its rows or the tile's keys all lie at or past P.  So a
+//   tile is skipped by at most one of the two consumers, and the other
+//   waits for its V before the stage is given back.  Rows at or past P
+//   see the causal mask alone, and the units keep their order (the longest
+//   causal loops first; the prefix lengthens the loops of the first P
+//   rows).
 // * O += P V is wgmma with P converted to bf16 in registers as the A
 //   operand and V read MN-major from shared memory (the transpose flag);
 //   at d 256 one m64n256k16 a k16 step, its 128 accumulators a thread
@@ -500,16 +513,22 @@ __device__ __forceinline__ int unit_index(int it) {
   return it * gridDim.x + (it & 1 ? gridDim.x - 1 - blockIdx.x : blockIdx.x);
 }
 
+// With a prefix of P > 0 positions, the kv loop of a unit whose rows start
+// below P runs at least to the last tile that holds a key below P.
 template <int kBN>
 __device__ __forceinline__ Unit unit_of(int w, int n_qt, int hq, int batch,
-                                        int sk, int causal) {
+                                        int sk, int causal, int prefix) {
   const int per_tile = hq * batch;
   Unit u;
   u.q0 = (n_qt - 1 - w / per_tile) * kBM;
   u.h = w % per_tile % hq;
   u.b = w % per_tile / hq;
   u.n_kt = (sk + kBN - 1) / kBN;
-  if (causal) u.n_kt = min(u.n_kt, (u.q0 + kBM - 1) / kBN + 1);
+  if (causal) {
+    int end = (u.q0 + kBM - 1) / kBN + 1;
+    if (u.q0 < prefix) end = max(end, (prefix + kBN - 1) / kBN);
+    u.n_kt = min(u.n_kt, end);
+  }
   return u;
 }
 
@@ -546,7 +565,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                           const __grid_constant__ CUtensorMap tv,
                           const __grid_constant__ CUtensorMap to, int batch,
                           int hq,
-                          int hkv, int sq, int sk, int causal,
+                          int hkv, int sq, int sk, int causal, int prefix,
                           float scale_log2) {
   using L = Layout<D>;
   constexpr int kBN = L::kBN;
@@ -577,7 +596,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (threadIdx.x == 0) {
       int g = 0;                                     // K/V tiles so far
       for (int it = 0; unit_index(it) < units; ++it) {
-        const Unit u = unit_of<kBN>(unit_index(it), n_qt, hq, batch, sk, causal);
+        const Unit u = unit_of<kBN>(unit_index(it), n_qt, hq, batch, sk, causal,
+                                    prefix);
         const int hk = u.h / group;
         mbar_wait(bar.q_empty(), (it & 1) ^ 1);
         mbar_arrive_expect_tx(bar.q_full(), L::kQ);
@@ -587,7 +607,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         // the next unit's Q, read once from device memory, into L2 now
         if (unit_index(it + 1) < units) {
           const Unit n = unit_of<kBN>(unit_index(it + 1), n_qt, hq, batch,
-                                      sk, causal);
+                                      sk, causal, prefix);
           for (int c = 0; c < L::kBoxes; ++c)
             tma_prefetch_4d(&tq, 64 * c, n.h, n.q0, n.b);
         }
@@ -617,8 +637,13 @@ __global__ void __launch_bounds__(kThreads, 1)
 
     int g = 0;
     for (int it = 0; unit_index(it) < units; ++it) {
-      const Unit u = unit_of<kBN>(unit_index(it), n_qt, hq, batch, sk, causal);
-      const int row0 = u.q0 + 64 * cw + 16 * warp + lane / 4;  // +8: odd pairs
+      const Unit u = unit_of<kBN>(unit_index(it), n_qt, hq, batch, sk, causal,
+                                  prefix);
+      const int first = u.q0 + 64 * cw;                // this consumer's rows
+      const int row0 = first + 16 * warp + lane / 4;   // +8: odd pairs
+      // a row's last key: col > max(row, P - 1) is col > row && (row >= P
+      // || col >= P), one compare a score as without a prefix
+      const int last[2] = {max(row0, prefix - 1), max(row0 + 8, prefix - 1)};
       float acc[D / 2];
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
@@ -633,10 +658,16 @@ __global__ void __launch_bounds__(kThreads, 1)
 
         const int n0 = j * kBN;
         if constexpr (kBN < kBM) {
-          // at 64-key tiles the block's last causal tile lies wholly above
-          // the first consumer's rows: it only gives the stage back, after
-          // the stage's load (so its arrival joins that tile's phase)
-          if (causal && n0 > u.q0 + 64 * cw + 63) {
+          // at 64-key tiles a tile past this consumer's diagonal that its
+          // mask empties (the block's last causal tile above the first
+          // consumer's rows; with a prefix, a tile past the diagonal where
+          // the rows or the keys lie at or past P) only gives the stage
+          // back, after the stage's load (so its arrival joins that tile's
+          // phase); the other consumer never skips the same tile.  At
+          // 128-key tiles no unit holds such a tile: its causal tiles end
+          // on its diagonal, and a tile past it is there only for keys
+          // below P, which both consumers' rows (below q0 + 64 < P) see.
+          if (causal && n0 > first + 63 && (first >= prefix || n0 >= prefix)) {
             mbar_wait(bar.full_k(st), ph);
             if (t == 0) {
               if (j == u.n_kt - 1) mbar_arrive(bar.q_empty());
@@ -667,12 +698,12 @@ __global__ void __launch_bounds__(kThreads, 1)
         hold(s);
         if (j == u.n_kt - 1 && t == 0) mbar_arrive(bar.q_empty());
 
-        if (n0 + kBN > sk || (causal && n0 + kBN - 1 > u.q0 + 64 * cw)) {
+        if (n0 + kBN > sk || (causal && n0 + kBN - 1 > first)) {
 #pragma unroll
           for (int i = 0; i < kBN / 2; ++i) {
             const int col = n0 + 8 * (i / 4) + col0 + i % 2;
-            const int row = row0 + 8 * ((i / 2) % 2);
-            if (col >= sk || (causal && col > row)) s[i] = -INFINITY;
+            if (col >= sk || (causal && col > last[(i / 2) % 2]))
+              s[i] = -INFINITY;
           }
         }
 
@@ -820,7 +851,7 @@ bool make_map(CUtensorMap* map, const void* ptr, int d, int heads, int seq,
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int d,
            int ld, int b, int hq, int hkv, int sq, int sk, int causal,
-           cudaStream_t stream) {
+           int prefix, cudaStream_t stream) {
   CUtensorMap mq, mk, mv, mo;
   if (!make_map(&mq, q, ld, hq, sq, b, kBM) ||
       !make_map(&mk, k, ld, hkv, sk, b, Layout<D>::kBN) ||
@@ -851,7 +882,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int d,
   const int grid = static_cast<int>(units < sms[device] ? units : sms[device]);
   const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(d));
   flash_fwd_sm90_kernel<D><<<grid, kThreads, smem, stream>>>(
-      mq, mk, mv, mo, b, hq, hkv, sq, sk, causal, scale_log2);
+      mq, mk, mv, mo, b, hq, hkv, sq, sk, causal, prefix, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1200,13 +1231,19 @@ int launch_wide(const void* q, const void* k, const void* v, void* o, int d,
 // takes rows 16 bytes apart) whose columns past d are zeros; sq and sk
 // multiples of 64; every pointer 16-byte aligned.  The instantiation is the
 // smallest of 64, 128, 256, 320, 384, 448 and 512 that holds ld, past 512
-// the one that holds slice_width(ld).
+// the one that holds slice_width(ld).  prefix_len, 0 for none, is the
+// prefix-LM mask's P (0 <= P <= sq): only with causal and ld <= 256 (the
+// wide kernel takes none).
 extern "C" int flash_attention_sm90_fwd(const void* q, const void* k,
                                         const void* v, void* o, int b, int hq,
                                         int hkv, int sq, int sk, int d, int ld,
-                                        int causal, void* stream) {
+                                        int causal, int prefix_len,
+                                        void* stream) {
   if (hkv <= 0 || hq % hkv != 0 || sq % 64 != 0 || sk % 64 != 0 || d < 1 ||
       ld < d || ld % 8 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (prefix_len < 0 || prefix_len > sq ||
+      (prefix_len > 0 && (!causal || ld > 256)))
     return static_cast<int>(cudaErrorInvalidValue);
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) %
@@ -1216,11 +1253,14 @@ extern "C" int flash_attention_sm90_fwd(const void* q, const void* k,
   if (sk == 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (ld <= 64)
-    return launch<64>(q, k, v, o, d, ld, b, hq, hkv, sq, sk, causal, s);
+    return launch<64>(q, k, v, o, d, ld, b, hq, hkv, sq, sk, causal,
+                       prefix_len, s);
   if (ld <= 128)
-    return launch<128>(q, k, v, o, d, ld, b, hq, hkv, sq, sk, causal, s);
+    return launch<128>(q, k, v, o, d, ld, b, hq, hkv, sq, sk, causal,
+                       prefix_len, s);
   if (ld <= 256)
-    return launch<256>(q, k, v, o, d, ld, b, hq, hkv, sq, sk, causal, s);
+    return launch<256>(q, k, v, o, d, ld, b, hq, hkv, sq, sk, causal,
+                       prefix_len, s);
   const int w = slice_width(ld);
   if (w <= 320)
     return launch_wide<320>(q, k, v, o, d, ld, b, hq, hkv, sq, sk, causal, s);

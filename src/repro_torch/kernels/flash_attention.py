@@ -1,4 +1,5 @@
-"""Flash attention (causal or full, grouped-query) for NVIDIA Hopper.
+"""Flash attention (causal, prefix-LM or full, grouped-query) for NVIDIA
+Hopper.
 
 Two CUDA C++ sources replace the reference's Pallas ``flash_attention``
 (``repro/kernels/flash_attention.py:78``); ``kernel_for`` picks one by
@@ -27,11 +28,14 @@ holds their plain PyTorch version.
 The kernels and the plain version take the model layout: q (B, Sq, Hq, d),
 k and v (B, Sk, Hkv, d), with query head h reading kv head
 ``h // (Hq // Hkv)``, the causal mask ``row >= col`` counted from position
-0, the scores scaled by ``1/sqrt(d)`` and the output in q's dtype.  The
-kernels take Sq and Sk in multiples of ``BLOCK``, float32 or bfloat16; the
-padding of a ragged causal prompt is the wrapper's (``ops.mha``).  Inputs
-are validated there; the functions here assume contiguous tensors of
-matching shapes on one device.
+0, the scores scaled by ``1/sqrt(d)`` and the output in q's dtype.  A
+``prefix_len`` P > 0 (causal only; head dims up to 256 in the kernels)
+makes the mask prefix-LM's, ``row >= col or (row < P and col < P)``, as
+the reference's plain ``attention`` computes it for the vlm family; 0
+leaves it causal.  The kernels take Sq and Sk in multiples of ``BLOCK``,
+float32 or bfloat16; the padding of a ragged causal prompt is the
+wrapper's (``ops.mha``).  Inputs are validated there; the functions here
+assume contiguous tensors of matching shapes on one device.
 """
 from __future__ import annotations
 
@@ -46,7 +50,7 @@ from ._build import check_launch, load_library
 __all__ = ["BLOCK", "MAX_HEAD_DIM", "INSTANTIATIONS",
            "ROW_ELEMS", "NEG_INF", "instantiation", "column_slices",
            "row_width", "sm90_tile", "SOURCES", "LAUNCHES", "BY_HEAD_DIM",
-           "kernel_for",
+           "BY_PREFIX", "kernel_for", "mask",
            "flash_attention_kernel",
            "flash_attention_plain", "flash_attention_sm90_plain"]
 
@@ -116,22 +120,41 @@ def sm90_tile(d: int) -> int:
 
 
 # Launches of each kernel, raised where it is launched (``ops.mha`` counts
-# its calls, whichever kernel they take), and of each kernel by the
-# caller's head dim (``BY_HEAD_DIM``, keyed as ``SOURCES``);
-# ``ops.reset_launches`` zeroes them.
+# its calls, whichever kernel they take), of each kernel by the caller's
+# head dim (``BY_HEAD_DIM``) and by its prefix length, 0 for none
+# (``BY_PREFIX``), both keyed as ``SOURCES``; ``ops.reset_launches`` zeroes
+# them.
 LAUNCHES = {name: 0 for name in SOURCES}
 BY_HEAD_DIM = {name: Counter() for name in SOURCES}
+BY_PREFIX = {name: Counter() for name in SOURCES}
 _ENTRIES = {"sm90": "flash_attention_sm90_fwd",
             "cuda_core": "flash_attention_fwd"}
 
 
+def mask(sq: int, sk: int, causal: bool, prefix_len: int,
+         device) -> torch.Tensor | None:
+    """The (Sq, Sk) boolean mask of the keys each query attends to: None
+    for full attention, ``row >= col`` when causal, or'd with
+    ``row < P and col < P`` for a prefix of P = ``prefix_len`` > 0."""
+    if not causal:
+        return None
+    rows = torch.arange(sq, device=device)[:, None]
+    cols = torch.arange(sk, device=device)[None, :]
+    keep = rows >= cols
+    if prefix_len:
+        keep = keep | ((rows < prefix_len) & (cols < prefix_len))
+    return keep
+
+
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           causal: bool) -> torch.Tensor:
+                           causal: bool, prefix_len: int = 0) -> torch.Tensor:
     """CUDA flash attention by the kernel ``kernel_for(q.dtype, d)`` names,
     at ``instantiation(q.dtype, d)``: each query tile of each head, batch
     element (and column slice) walks the kv tiles in a loop that stops at
-    the diagonal when ``causal``.  Columns are padded with zeros to
-    ``row_width`` and dropped from the output."""
+    the diagonal when ``causal`` (for a tile that starts below
+    ``prefix_len``, at the later of the diagonal and the prefix's last
+    tile).  Columns are padded with zeros to ``row_width`` and dropped from
+    the output."""
     lib, _ = load_library()
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
@@ -144,14 +167,15 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     entry = _ENTRIES[route]
     check_launch(lib, entry, getattr(lib, entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq,
-        hkv, sq, sk, d, ld, int(causal), stream))
+        hkv, sq, sk, d, ld, int(causal), prefix_len, stream))
     LAUNCHES[route] += 1
     BY_HEAD_DIM[route][d] += 1
+    BY_PREFIX[route][prefix_len] += 1
     return out if ld == d else out[..., :d]
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          causal: bool) -> torch.Tensor:
+                          causal: bool, prefix_len: int = 0) -> torch.Tensor:
     """Plain version: dense softmax attention in float32, the same function
     as the kernels (probabilities kept in float32, output in q's dtype; the
     tensor-core kernel's bf16 probabilities are within the tolerance that
@@ -160,16 +184,17 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     sk, hkv = k.shape[1], k.shape[2]
     qg = q.float().reshape(b, sq, hkv, hq // hkv, d)
     s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * (1.0 / math.sqrt(d))
-    if causal:
-        mask = torch.ones(sq, sk, dtype=torch.bool, device=q.device).tril()
-        s = s.masked_fill(~mask, NEG_INF)
+    keep = mask(sq, sk, causal, prefix_len, q.device)
+    if keep is not None:
+        s = s.masked_fill(~keep, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
     return out.reshape(b, sq, hq, d).to(q.dtype)
 
 
 def flash_attention_sm90_plain(q: torch.Tensor, k: torch.Tensor,
-                               v: torch.Tensor, causal: bool) -> torch.Tensor:
+                               v: torch.Tensor, causal: bool,
+                               prefix_len: int = 0) -> torch.Tensor:
     """The tensor-core kernels' numerics in plain PyTorch: float32 scores, an
     online softmax over ``sm90_tile(d)``-key tiles in the log2 domain, the
     unnormalised probabilities rounded to bfloat16 for P.V (their sum taken
@@ -184,13 +209,12 @@ def flash_attention_sm90_plain(q: torch.Tensor, k: torch.Tensor,
     m = torch.full((b, hq, sq, 1), -math.inf, device=q.device)
     l = torch.zeros((b, hq, sq, 1), device=q.device)
     acc = torch.zeros((b, hq, sq, d), device=q.device)
-    rows = torch.arange(sq, device=q.device)[:, None]
+    keep = mask(sq, sk, causal, prefix_len, q.device)
     tile = sm90_tile(d)
     for n0 in range(0, sk, tile):
         sc = qf @ kf[:, :, n0:n0 + tile].transpose(-1, -2)
-        if causal:
-            cols = n0 + torch.arange(sc.shape[-1], device=q.device)[None, :]
-            sc = sc.masked_fill(cols > rows, -math.inf)
+        if keep is not None:
+            sc = sc.masked_fill(~keep[:, n0:n0 + tile], -math.inf)
         m_new = torch.maximum(m, sc.amax(-1, keepdim=True) * c)
         mu = m_new.nan_to_num(neginf=0.0)
         alpha = torch.exp2(m - mu)

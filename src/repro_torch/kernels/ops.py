@@ -16,8 +16,9 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from .flash_attention import (BLOCK, BY_HEAD_DIM, LAUNCHES,
-                              flash_attention_kernel, flash_attention_plain)
+from .flash_attention import (BLOCK, BY_HEAD_DIM, BY_PREFIX, LAUNCHES,
+                              MAX_HEAD_DIM, SOURCES, flash_attention_kernel,
+                              flash_attention_plain, instantiation)
 from .pchase_probe import (eviction_batch_plain, eviction_kernel_batch,
                            pchase_batch_plain, pchase_kernel,
                            pchase_kernel_batch, pchase_plain)
@@ -137,17 +138,25 @@ def _pad_seq(x: torch.Tensor, length: int, value: float = 0.0):
 
 @_counted
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-        causal: bool = True) -> torch.Tensor:
+        causal: bool = True, prefix_len: int = 0) -> torch.Tensor:
     """Flash attention over model-layout activations: q (B, Sq, Hq, d),
     k and v (B, Sk, Hkv, d), float32 or bfloat16, any head dim d >= 1 ->
     (B, Sq, Hq, d) in q's dtype; ``flash_attention.kernel_for`` names the
     kernel of each dtype and d.
 
+    ``prefix_len`` P (0 <= P <= Sq; 0 for none) makes the causal mask
+    prefix-LM's: rows and keys both below P also attend to each other, as
+    the reference's ``attention(causal=True, prefix_len=P)`` computes it.
+    A P > 0 is refused without ``causal`` (the reference's mask ignores it
+    there) and past head dim 256, whose wide kernels take no prefix (on
+    the CPU too, which runs what the card runs).
+
     The kernel takes sequence lengths in multiples of ``BLOCK``.  A ragged
     causal call with Sq <= Sk is padded at the tail and the padded rows
-    dropped: every padded key lies after every real query, so the causal
-    mask hides it and the result is exact.  A ragged non-causal call would
-    attend to the padding, so it raises.
+    dropped: every padded key lies at or after Sk >= Sq >= P, so it is never
+    in the prefix, and the causal mask hides it from every real query; the
+    result is exact.  A ragged non-causal call would attend to the padding,
+    so it raises.
     """
     dev = q.device
     _check("q", q, (torch.float32, torch.bfloat16), 4, dev)
@@ -163,15 +172,29 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"heads")
     if d < 1:
         raise ValueError(f"head dim {d}: expected at least 1")
+    prefix = int(prefix_len)
+    if prefix and not causal:
+        raise ValueError(f"prefix_len={prefix} needs causal=True: the "
+                         f"prefix-LM mask is the causal one widened")
+    if not 0 <= prefix <= sq:
+        raise ValueError(f"prefix_len={prefix} outside [0, Sq={sq}]")
     ragged = sq % BLOCK or sk % BLOCK
     if ragged and not (causal and sq <= sk):
         raise ValueError(f"lengths {sq}, {sk} are not multiples of {BLOCK}; "
                          f"only causal attention with Sq <= Sk is padded")
+    if prefix and instantiation(q.dtype, d) > 256:
+        raise NotImplementedError(
+            f"prefix_len at head dim {d} (instantiation "
+            f"{instantiation(q.dtype, d)}): the wide kernels past 256 "
+            f"(flash_fwd_sm90_wide_kernel in {SOURCES['sm90']}, "
+            f"flash_fwd_wide_kernel in {SOURCES['cuda_core']}) take no "
+            f"prefix; up to {MAX_HEAD_DIM} they take causal and full only")
     fn = _route(dev, flash_attention_kernel, flash_attention_plain)
     if not ragged:
-        return fn(q, k, v, causal)
+        return fn(q, k, v, causal, prefix)
     pq, pk = -(-sq // BLOCK) * BLOCK, -(-sk // BLOCK) * BLOCK
-    out = fn(_pad_seq(q, pq), _pad_seq(k, pk), _pad_seq(v, pk), causal)
+    out = fn(_pad_seq(q, pq), _pad_seq(k, pk), _pad_seq(v, pk), causal,
+             prefix)
     return out[:, :sq]
 
 
@@ -267,10 +290,11 @@ LLM_WRAPPERS = (mha, wkv6, pchase)
 
 def reset_launches() -> None:
     """Zero every wrapper's ``launches`` count and the attention kernels'
-    own counts (``flash_attention.LAUNCHES`` and ``BY_HEAD_DIM``)."""
+    own counts (``flash_attention.LAUNCHES``, ``BY_HEAD_DIM`` and
+    ``BY_PREFIX``)."""
     for fn in WRAPPERS + LLM_WRAPPERS:
         fn.launches = 0
     for key in LAUNCHES:
         LAUNCHES[key] = 0
-    for counts in BY_HEAD_DIM.values():
+    for counts in (*BY_HEAD_DIM.values(), *BY_PREFIX.values()):
         counts.clear()

@@ -89,10 +89,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Plain GQA attention. q (B,Tq,Hq,hd), k/v (B,Tk,Hkv,hd) -> (B,Tq,Hq,hd).
 
     ``q_offset``: absolute position of q[0]; ``prefix_len``: positions below
-    it attend bidirectionally (prefix-LM); ``q_chunk``: if > 0 and
-    Tq >= 2 * q_chunk, queries are taken a chunk at a time so the score
-    matrix never materialises at (Tq, Tk).  The serving path's prefill goes
-    through the flash kernel (``kernels.ops.mha``) instead.
+    it attend bidirectionally (prefix-LM; with ``causal`` only, as the
+    reference's); ``q_chunk``: if > 0 and Tq >= 2 * q_chunk, queries are
+    taken a chunk at a time so the score matrix never materialises at
+    (Tq, Tk).  The serving path's prefill goes through the flash kernel
+    instead (``kernels.ops.mha``, which takes the same ``prefix_len``).
     """
     b, tq, hq, hd = q.shape
     tk, hkv = k.shape[1], k.shape[2]

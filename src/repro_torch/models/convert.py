@@ -12,7 +12,7 @@ import torch
 
 __all__ = ["params_from_numpy"]
 
-_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+_FAMILIES = ("dense", "moe", "audio", "vlm", "ssm", "hybrid")
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -43,10 +43,11 @@ def params_from_numpy(cfg, tree: dict, device: str = "cuda") -> dict:
     """The reference's parameter tree as numpy arrays, with layers stacked
     on a leading axis under ``"layers"`` -> the port's parameters (one
     dictionary per layer, nested dictionaries such as a layer's ``moe`` or
-    zamba2's ``shared`` kept nested), on ``device``, dtypes kept."""
+    zamba2's ``shared`` kept nested), on ``device``, dtypes kept; the
+    top-level arrays (audio's (K, V, d) ``embed`` and (K, d, V) ``head``,
+    vlm's ``vis_proj``) cross as they are."""
     if cfg.family not in _FAMILIES:
-        raise NotImplementedError(f"family {cfg.family!r}: only "
-                                  f"{_FAMILIES} are ported")
+        raise ValueError(f"family {cfg.family!r}: not one of {_FAMILIES}")
     params = {name: _tree(sub, device) for name, sub in tree.items()
               if name != "layers"}
     layers = tree["layers"]

@@ -1,12 +1,12 @@
 """Unified model API + registry.
 
 ``get_model(cfg)`` returns a ``Model`` facade over the family's backend:
-``dense`` and ``moe`` -> ``transformer``, ``ssm`` -> ``rwkv6``, ``hybrid``
--> ``zamba2``.  Parameters are plain dictionaries of tensors passed
-explicitly to every entry point.  The audio and vlm families raise
-``NotImplementedError`` naming what is missing (``transformer``);
-``param_specs`` and ``input_specs`` belong to the sharding and dry-run
-slice and are not here.
+``dense``, ``moe``, ``audio`` and ``vlm`` -> ``transformer``, ``ssm`` ->
+``rwkv6``, ``hybrid`` -> ``zamba2``.  Parameters are plain dictionaries of
+tensors passed explicitly to every entry point; batches take the layouts
+of the reference's ``Model.input_specs`` (audio's (B, K, T) codebook ids,
+vlm's ``patches`` beside its ``tokens``).  ``param_specs`` and
+``input_specs`` belong to the sharding and dry-run slice and are not here.
 """
 from __future__ import annotations
 

@@ -1,16 +1,25 @@
 """Decoder-only transformer for the dense family (qwen3, codeqwen1.5,
-internlm2) and the moe family (qwen3-moe): GQA with optional qk_norm, RoPE,
-a SwiGLU or mixture-of-experts FFN (``models.moe``), a KV cache.
+internlm2), the moe family (qwen3-moe), the audio family (musicgen: the sum
+of K codebook embeddings in, K heads out) and the vlm family (paligemma: a
+projected patch prefix, the prefix-LM mask, the sqrt(d) embedding scale and
+soft-capped logits): GQA with optional qk_norm, RoPE, a SwiGLU or
+mixture-of-experts FFN (``models.moe``), a KV cache.
 
 The port of ``repro.models.transformer`` for serving.  Layers are a Python
 loop over per-layer parameter dictionaries where the reference scans a
 stacked axis; the reference's sharding constraints have no counterpart on
-one card.  Prefill attention, causal from position 0, goes through the
-flash-attention kernel (``kernels.ops.mha``); decode attention over the
-cache is plain PyTorch, as the reference leaves it outside any kernel.
+one card.  Prefill attention, causal from position 0 (prefix-LM over the
+patches for vlm), goes through the flash-attention kernel
+(``kernels.ops.mha``); decode attention over the cache is plain PyTorch and
+causal, as the reference leaves it outside any kernel.
 
-Not ported: the audio and vlm families, ``forward`` and ``train_loss``
-(each raises ``NotImplementedError`` naming what is missing).
+Batches take the reference's layouts (``Model.input_specs``): ``tokens``
+(B, T) for dense, moe and vlm, (B, K, T) for audio, and for vlm also
+``patches`` (B, n_patches, vision_embed_dim); a decode step takes (B, 1),
+or (B, K, 1) for audio.
+
+Not ported: ``forward`` and ``train_loss`` (each raises
+``NotImplementedError`` naming what is missing).
 """
 from __future__ import annotations
 
@@ -27,14 +36,6 @@ from .moe import init_moe, moe_ffn
 __all__ = ["Runtime", "init", "forward", "train_loss", "prefill",
            "decode_step", "init_cache", "cache_specs"]
 
-_MISSING = {
-    "audio": "the codebook embeddings and heads of the audio family are not "
-             "ported",
-    "vlm": "the prefix-LM mask of the vlm family is not ported, and the "
-           "causal flash kernel does not compute it",
-}
-
-
 @dataclass(frozen=True)
 class Runtime:
     """Execution knobs of training (``forward``, ``train_loss``), which
@@ -50,12 +51,6 @@ class Runtime:
             raise NotImplementedError(
                 "moe_impl='ep': models/moe_ep.py (expert parallelism over a "
                 "mesh) and sharding/ are not ported")
-
-
-def _check(cfg) -> None:
-    if cfg.family in _MISSING:
-        raise NotImplementedError(f"family {cfg.family!r}: "
-                                  f"{_MISSING[cfg.family]}")
 
 
 # ------------------------------------------------------------------- init
@@ -81,13 +76,19 @@ def init_layer(ini: Initializer, cfg) -> dict:
 
 
 def init(cfg, generator: torch.Generator) -> dict:
-    """Parameters drawn from ``generator`` on its device."""
-    _check(cfg)
+    """Parameters drawn from ``generator`` on its device, with the
+    reference's names and shapes."""
     ini = Initializer(generator, DTYPES[cfg.dtype])
     d, v = cfg.d_model, cfg.vocab_size
-    params = {"embed": ini.normal(v, d)}
-    if not cfg.tie_embeddings:
-        params["head"] = ini.normal(d, v)
+    if cfg.family == "audio":
+        params = {"embed": ini.normal(cfg.n_codebooks, v, d),
+                  "head": ini.normal(cfg.n_codebooks, d, v)}
+    else:
+        params = {"embed": ini.normal(v, d)}
+        if not cfg.tie_embeddings:
+            params["head"] = ini.normal(d, v)
+    if cfg.family == "vlm":
+        params["vis_proj"] = ini.normal(cfg.vision_embed_dim, d)
     params["final_norm"] = ini.ones(d)
     params["layers"] = [init_layer(ini, cfg) for _ in range(cfg.n_layers)]
     return params
@@ -123,11 +124,13 @@ def _ffn(cfg, p, x):
     return x + swiglu(h, p["w1"], p["w3"], p["w2"])
 
 
-def block_prefill(cfg, p, x):
-    """One layer over the prompt; returns (out, k, v) for the cache."""
+def block_prefill(cfg, p, x, prefix_len: int = 0):
+    """One layer over the prompt, the first ``prefix_len`` positions
+    attending to each other both ways (vlm's patches; 0 for a causal
+    prompt); returns (out, k, v) for the cache."""
     pos = torch.arange(x.shape[1], device=x.device)
     q, k, v = _qkv(cfg, p, x, pos)
-    out = ops.mha(q, k, v, causal=True)
+    out = ops.mha(q, k, v, causal=True, prefix_len=prefix_len)
     return _ffn(cfg, p, x + _out_proj(p, out, x)), k, v
 
 
@@ -150,15 +153,39 @@ def block_decode(cfg, p, x, ck, cv, cur_len: int):
     return _ffn(cfg, p, x + _out_proj(p, out, x))
 
 
-def _embed(cfg, params, tokens):
-    x = params["embed"][tokens]
+def _scaled(cfg, x):
+    """x times sqrt(d) rounded to x's dtype, where the config scales."""
     if cfg.embed_scale:
         x = x * torch.tensor(float(cfg.d_model)).sqrt().to(x.dtype)
     return x
 
 
+def _embed(cfg, params, tokens):
+    """Token ids -> embeddings: (B, T) ids, or audio's (B, K, T) codebook
+    ids summed over the K codebooks in the reference's order and dtype
+    (``((e0 + e1) + e2) + ...``, no scale)."""
+    if cfg.family == "audio":
+        return sum(params["embed"][kb][tokens[:, kb]]
+                   for kb in range(cfg.n_codebooks))
+    return _scaled(cfg, params["embed"][tokens])
+
+
+def _embed_prompt(cfg, params, batch):
+    """A prefill batch -> (embeddings, prefix length): vlm's projected
+    patches ahead of its text, scaled together after the join, with the
+    patches as the prefix; 0 for the other families."""
+    if cfg.family != "vlm":
+        return _embed(cfg, params, batch["tokens"]), 0
+    proj = params["vis_proj"]
+    img = batch["patches"].to(proj.dtype) @ proj
+    txt = params["embed"][batch["tokens"]]
+    return _scaled(cfg, torch.cat([img, txt], dim=1)), cfg.n_patches
+
+
 def _logits(cfg, params, x):
-    if cfg.tie_embeddings:
+    if cfg.family == "audio":
+        out = torch.einsum("btd,kdv->btkv", x, params["head"])
+    elif cfg.tie_embeddings:
         out = x @ params["embed"].T
     else:
         out = x @ params["head"]
@@ -182,7 +209,6 @@ def train_loss(cfg, params, batch, rt: Runtime = Runtime()):
 
 def init_cache(cfg, batch_size: int, max_len: int, dtype=None,
                device="cuda") -> dict:
-    _check(cfg)
     dtype = dtype or DTYPES[cfg.dtype]
     shape = (cfg.n_layers, batch_size, max_len, cfg.n_kv_heads,
              cfg.resolved_head_dim)
@@ -198,16 +224,17 @@ def cache_specs(cfg) -> dict:
 
 
 def prefill(cfg, params, batch, max_len: int):
-    """Run the prompt, fill a KV cache, return (last-token logits, cache)."""
-    _check(cfg)
-    tokens = batch["tokens"]
-    bsz, seq = tokens.shape
+    """Run the prompt, fill a KV cache, return (last-token logits, cache):
+    logits (B, V), or (B, K, V) for audio; vlm's cache holds its patches'
+    positions ahead of the text's."""
+    x, prefix_len = _embed_prompt(cfg, params, batch)
+    bsz, seq = x.shape[:2]
     if seq > max_len:
-        raise ValueError(f"prompt of {seq} tokens exceeds max_len {max_len}")
-    x = _embed(cfg, params, tokens)
+        raise ValueError(f"prompt of {seq} positions exceeds max_len "
+                         f"{max_len}")
     cache = init_cache(cfg, bsz, max_len, dtype=x.dtype, device=x.device)
     for layer, p in enumerate(params["layers"]):
-        x, k, v = block_prefill(cfg, p, x)
+        x, k, v = block_prefill(cfg, p, x, prefix_len)
         cache["k"][layer, :, :seq] = k
         cache["v"][layer, :, :seq] = v
     cache["len"] = seq
@@ -216,10 +243,9 @@ def prefill(cfg, params, batch, max_len: int):
 
 
 def decode_step(cfg, params, batch, cache):
-    """One-token step against a filled KV cache.  Writes the new k and v
-    into ``cache`` in place (no copy of the whole cache per step) and
-    returns (logits, cache)."""
-    _check(cfg)
+    """One-token step against a filled KV cache: tokens (B, 1), or (B, K, 1)
+    for audio.  Writes the new k and v into ``cache`` in place (no copy of
+    the whole cache per step) and returns (logits, cache)."""
     cur = cache["len"]
     if cur >= cache["k"].shape[2]:
         raise ValueError(f"cache full: {cur} positions of "

@@ -15,6 +15,7 @@
   processes, so they are held to the model's order of levels and to
   within a factor of two; the card holds them to 50 % (``chip_smoke.py``).
 """
+import copy
 import multiprocessing
 import os
 
@@ -248,17 +249,58 @@ def test_cuda_resilience_retries_to_ground_truth():
     assert set(got) == set(want)
 
 
+class _Replay:
+    """A ``CudaRunner`` on the CPU behind a log of its probe calls.
+
+    Without ``recorded`` it keeps each call's (method, arguments) and
+    result.  Given another replay's log it checks that each call asks what
+    the recorded one asked, runs it on its own runner all the same (the
+    kernels launch as they would) and returns the recorded result.  A
+    discovery through it then takes the recorded discovery's path whatever
+    the CPU's timings: the size sweep's bisection follows the timings, so
+    two measured discoveries may launch different counts."""
+
+    def __init__(self, recorded: list | None = None):
+        self._base = CudaRunner(device="cpu", base_steps=BASE_STEPS)
+        self._recorded = recorded
+        self.log = []
+
+    def __getattr__(self, name):
+        attr = getattr(self._base, name)
+        if not callable(attr):
+            return attr
+
+        def call(*args, **kwargs):
+            out = attr(*args, **kwargs)
+            asked = (name, repr(args), repr(kwargs))
+            if self._recorded is not None:
+                want, out = self._recorded[len(self.log)]
+                assert asked == want, f"call {len(self.log)}: {asked}"
+            self.log.append((asked, copy.deepcopy(out)))
+            return copy.deepcopy(out)
+        return call
+
+
 def test_cuda_parallel_stays_inline():
+    """``parallel=`` on a CUDA runner spawns no worker and registers no
+    pool, and runs inline the discovery that the call without it runs: on
+    the same probe results (``_Replay``) the same calls, launches and
+    topology."""
+    # an earlier test's pool may still be reaping its workers; closing every
+    # pool joins them, so the snapshot holds no child on its way out
+    shutdown_global_pools()
     children = set(multiprocessing.active_children())
-    _, _, pooled = _vmem_discovery(
-        runner=CudaRunner(device="cpu", base_steps=BASE_STEPS), budget=None,
-        fuse=False, parallel=PCFG)
+    pooled_runner = _Replay()
+    pooled_topo, _, pooled = _vmem_discovery(
+        runner=pooled_runner, budget=None, fuse=False, parallel=PCFG)
     assert not parallel_module._POOLS
     assert set(multiprocessing.active_children()) == children
-    _, _, inline = _vmem_discovery(
-        runner=CudaRunner(device="cpu", base_steps=BASE_STEPS), budget=None,
-        fuse=False)
+    inline_runner = _Replay(pooled_runner.log)
+    inline_topo, _, inline = _vmem_discovery(
+        runner=inline_runner, budget=None, fuse=False)
+    assert len(inline_runner.log) == len(pooled_runner.log) > 0
     assert pooled == inline and all(n > 0 for n in pooled[2:])
+    assert _without_notes(inline_topo) == _without_notes(pooled_topo)
 
 
 def test_cuda_runner_defaults_to_the_card():

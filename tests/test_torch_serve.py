@@ -6,8 +6,10 @@
 * ``launch.serve.main(... --device cpu)`` returns its numbers, and its
   prefill went through the family's kernel wrapper once per layer (once per
   site of the shared block for hybrid) and wave.
-* The families, flags and entry points that are not ported raise
-  ``NotImplementedError`` naming the missing module, and launch nothing.
+* The flags and entry points that are not ported raise
+  ``NotImplementedError`` naming the missing module, and launch nothing
+  (every family is ported; ``test_torch_audio_vlm.py`` serves audio and
+  vlm).
 """
 import inspect
 
@@ -89,10 +91,6 @@ def _unported_calls():
     tokens = {"tokens": torch.zeros(1, 4, dtype=torch.long)}
     argv = ["--arch", "qwen3-14b-smoke", "--device", "cpu"]
     return {
-        "audio": (lambda: model("musicgen-large-smoke").init(device="cpu"),
-                  "codebook"),
-        "vlm": (lambda: model("paligemma-3b-smoke").init(device="cpu"),
-                "prefix-LM"),
         "moe-ep": (lambda: Runtime(moe_impl="ep"), "moe_ep.py"),
         "forward": (lambda: dense.forward({}, tokens), "train/"),
         "train_loss": (lambda: dense.train_loss({}, tokens), "train/"),
@@ -105,9 +103,6 @@ def _unported_calls():
                  "sharding/"),
         "ckpt-dir": (lambda: launch_serve.main(argv + ["--ckpt-dir", "x"]),
                      "checkpoint/"),
-        "convert": (lambda: params_from_numpy(
-            tconfigs.get_config("musicgen-large-smoke"), {"layers": {}},
-            device="cpu"), "only"),
     }
 
 

@@ -20,8 +20,9 @@ timed by CUDA events (median of ``--reps`` calls) and by
 ``torch.profiler``'s device time (``chip_smoke.device_ms``, all four and
 ``scaled_dot_product_attention`` in one session).  An entry point's
 arguments are read by name from its declaration in the source (q, k, v,
-o, b, hq, hkv, sq, sk, d, ld, causal, bf16, stream), so an older entry
-point without the row width or with a dtype flag is called as it asks.
+o, b, hq, hkv, sq, sk, d, ld, causal, prefix_len (0), bf16, stream), so
+an older entry point without the row width or the prefix, or with a dtype
+flag, is called as it asks.
 The card's name and power limit come first; the numbers also go to
 ``--out`` as JSON.
 """
@@ -78,7 +79,8 @@ def launcher(fn, names, q, k, v, out, d: int, causal: bool):
     """A call of ``fn`` on q, k, v (rows ld wide) writing ``out``."""
     b, s, hq, ld = q.shape
     values = dict(b=b, hq=hq, hkv=k.shape[2], sq=s, sk=s, d=d, ld=ld,
-                  causal=int(causal), bf16=int(q.dtype == torch.bfloat16))
+                  causal=int(causal), prefix_len=0,
+                  bf16=int(q.dtype == torch.bfloat16))
 
     def run():
         ptrs = dict(q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(),

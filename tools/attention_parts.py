@@ -115,7 +115,7 @@ def build(src: Path, out: Path, entry: str):
     if proc.returncode:
         raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
     fn = getattr(ctypes.CDLL(str(out)), entry)
-    fn.argtypes = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 8 + (
+    fn.argtypes = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 9 + (
         ctypes.c_void_p,)
     fn.restype = ctypes.c_int
     return fn
@@ -174,7 +174,7 @@ def main(argv=None) -> int:
             def call(fn):
                 def run():
                     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                             out.data_ptr(), b, hq, hkv, s, s, d, d, 1,
+                             out.data_ptr(), b, hq, hkv, s, s, d, d, 1, 0,
                              stream)
                     if err:
                         raise RuntimeError(f"CUDA error {err}")
