@@ -159,7 +159,29 @@ to a plain version):
              capacity; then the six smoke configs in f32 on the card
              (where the CUDA-core attention kernel runs, at head dim 16 on
              its d 32 instantiation, with a prefix of 8 for the vlm one)
-             against the same weights on the CPU.
+             against the same weights on the CPU;
+6. train   — training through ``repro_torch.train`` (``forward``,
+             ``train_loss``, AdamW, ``train_loop``) and ``repro_torch.data``,
+             which take the reference's plain attention and WKV, never a
+             kernel: an ``ops.mha`` call on an input that requires grad is
+             refused, and no ``mha`` or ``wkv6`` launches over the phase.
+             The six smoke configs in f32 (TF32 off) on the card against
+             the CPU from the same weights and ``SyntheticLM`` batch
+             (2 x 64 tokens a microbatch): ``train_loss`` within 1e-4
+             relative, every gradient leaf within 1e-3 of its largest
+             |value|, three ``train_loop`` steps' losses within 1e-4; then
+             internlm2-1.8b at full width and depth (1.889 B parameters,
+             bf16 with a float32 master) with the reference launcher's
+             data and optimizer: ``ByteCorpus`` batches of 8 x 512 tokens
+             in 2 microbatches, ``remat="full"``, AdamW lr 1e-3, warmup 2,
+             8 steps, printing the parameters, the peak memory, each
+             step's loss, grad norm and wall (the first apart), tokens/s
+             over steps 2-8, and one more warm step under
+             ``torch.profiler`` (device busy, idle share, top device
+             operations); every loss finite, the last below the first, the
+             peak under 80 GB.
+
+The ``[smoke] all phases passed`` line gives the wall time of phases 1-6.
 
 The last two lines of standard output are the kernels summary and the
 device line, each one JSON object.  Exits non-zero without them when there
@@ -2698,6 +2720,245 @@ def phase_serve() -> dict:
 
 
 # --------------------------------------------------------------------------
+# Phase 6: training (forward, train_loss, train/ and data/)
+# --------------------------------------------------------------------------
+TRAIN_SMOKE = dict(seq_len=64, global_batch=4, microbatches=2, steps=3)
+TRAIN_LOSS_TOL = 1e-4        # relative, card against the CPU (float32)
+TRAIN_GRAD_TOL = 1e-3        # of each gradient leaf's largest |value|
+# internlm2-1.8b at full width and depth with the reference launcher's data
+# and optimizer (src/repro/launch/train.py): ByteCorpus, AdamW, bf16 params
+# with a float32 master, every layer recomputed in the backward pass
+TRAIN_FULL = dict(arch="internlm2-1.8b", global_batch=8, seq_len=512,
+                  microbatches=2, steps=8, lr=1e-3, warmup_steps=2,
+                  total_steps=8, remat="full")
+TRAIN_PEAK_BYTES = 80e9
+
+
+def _smoke_data(cfg):
+    from repro_torch.data import DataConfig, SyntheticLM
+
+    audio, vlm = cfg.family == "audio", cfg.family == "vlm"
+    return SyntheticLM(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SMOKE["seq_len"],
+        global_batch=TRAIN_SMOKE["global_batch"], seed=1,
+        n_codebooks=cfg.n_codebooks if audio else 0,
+        n_patches=cfg.n_patches if vlm else 0,
+        vision_embed_dim=cfg.vision_embed_dim if vlm else 0))
+
+
+def _loss_and_grads(model, params, batch, device):
+    from repro_torch.train.optimizer import tree_leaves
+
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss = model.train_loss(params, {name: torch.from_numpy(x).to(device)
+                                     for name, x in batch.items()})
+    grads = torch.autograd.grad(loss, leaves)
+    return float(loss.detach()), [g.cpu() for g in grads]
+
+
+def _train_smoke_agreement(arch: str, overrides: dict) -> dict:
+    """A float32 smoke config's ``train_loss``, its gradients and three
+    ``train_loop`` steps (two microbatches) on the card and on the CPU,
+    from the same weights and ``SyntheticLM`` batches; returns the largest
+    relative loss difference, gradient difference over its leaf's largest
+    |value|, and step-loss difference."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.train import OptConfig, TrainConfig, train_loop
+    from repro_torch.train.optimizer import init_opt_state, tree_map
+
+    cfg = get_config(arch).replace(dtype="float32", **overrides)
+    model = get_model(cfg)
+    cpu = model.init(seed=0, device="cpu")
+    card = _to_card(cpu)
+    data = _smoke_data(cfg)
+    batch = data.batch_at(0)
+    loss_cpu, grads_cpu = _loss_and_grads(model, cpu, batch, "cpu")
+    loss_card, grads_card = _loss_and_grads(model, card, batch, "cuda")
+    loss_err = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    check(np.isfinite(loss_card) and loss_err <= TRAIN_LOSS_TOL,
+          f"{arch}: train_loss on the card {loss_card} against the CPU's "
+          f"{loss_cpu}")
+    grad_err = 0.0
+    for i, (a, b) in enumerate(zip(grads_cpu, grads_card)):
+        scale = float(a.abs().max())
+        err = float((a - b).abs().max())
+        check(bool(torch.isfinite(b).all()) and err <= TRAIN_GRAD_TOL * scale
+              + 1e-7, f"{arch}: gradient leaf {i} {tuple(a.shape)} differs "
+                      f"by {err:g}, its largest |value| {scale:g}")
+        grad_err = max(grad_err, err / max(scale, 1e-30))
+    tc = TrainConfig(opt=OptConfig(lr=1e-3, warmup_steps=1, total_steps=8),
+                     microbatches=TRAIN_SMOKE["microbatches"])
+    hists = {}
+    for where, params in (("cpu", cpu), ("card", card)):
+        params = tree_map(lambda t: t.detach().clone(), params)
+        state = {"params": params, "opt": init_opt_state(params, tc.opt)}
+        _, hist = train_loop(model, tc, data, TRAIN_SMOKE["steps"],
+                             state=state)
+        hists[where] = [m["loss"] for _, m in hist]
+    step_err = max(abs(a - b) / abs(a)
+                   for a, b in zip(hists["cpu"], hists["card"]))
+    check(all(np.isfinite(hists["card"])) and step_err <= TRAIN_LOSS_TOL,
+          f"{arch}: train_loop losses on the card {hists['card']} against "
+          f"the CPU's {hists['cpu']}")
+    return {"loss": loss_err, "grad": grad_err, "steps": step_err,
+            "losses": hists["card"]}
+
+
+def _profile_train_step(step_fn, state, batch) -> tuple[list, dict] | None:
+    """One more train step under ``torch.profiler``, opened by ``lead_in``
+    and closed by a marker: (the step's device events, the state), or None
+    with the state when the session does not hold the step whole."""
+    from torch.profiler import ProfilerActivity, profile
+
+    marker = _marker_name()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        lead_in()
+        state, metrics = step_fn(state, batch)
+        float(metrics["loss"])
+        mark()
+        torch.cuda.synchronize()
+    parts = marked_parts(_device_events(prof), marker, 1)
+    return (parts[0] if parts and parts[0] else None), state
+
+
+def _train_full() -> dict:
+    """internlm2-1.8b trained at full width and depth (``TRAIN_FULL``)
+    through ``init_train_state`` and ``train_loop`` on the card; then one
+    warm step profiled for the device's busy time and idle share."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import ByteCorpus, DataConfig
+    from repro_torch.models import Runtime, get_model
+    from repro_torch.train import (OptConfig, TrainConfig, init_train_state,
+                                   make_train_step, train_loop)
+    from repro_torch.train.optimizer import tree_leaves
+
+    run = TRAIN_FULL
+    cfg = get_config(run["arch"])
+    model = get_model(cfg)
+    tc = TrainConfig(opt=OptConfig(lr=run["lr"],
+                                   warmup_steps=run["warmup_steps"],
+                                   total_steps=run["total_steps"]),
+                     microbatches=run["microbatches"],
+                     runtime=Runtime(remat=run["remat"]))
+    data = ByteCorpus(DataConfig(vocab_size=cfg.vocab_size,
+                                 seq_len=run["seq_len"],
+                                 global_batch=run["global_batch"]))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_train_state(model, 0, tc, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = _numel(state["params"])
+    state_bytes = sum(t.numel() * t.element_size() for part in (
+        state["params"], state["opt"]["m"], state["opt"]["v"],
+        state["opt"]["master"]) for t in tree_leaves(part))
+    print(f"[train] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}; {n_params / 1e9:.4f} B parameters "
+          f"({cfg.param_count() / 1e9:.4f} B by ModelConfig.param_count) in "
+          f"{tree_leaves(state['params'])[0].dtype} with a float32 "
+          f"master; params + m + v + master {state_bytes / 1e9:.2f} GB; "
+          f"init {init_s:.3f}s")
+    step_fn = make_train_step(model, tc)
+    state, hist = train_loop(model, tc, data, run["steps"], state=state,
+                             step_fn=step_fn)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"] for _, m in hist]
+    times = [m["step_time_s"] for _, m in hist]
+    tokens = run["global_batch"] * run["seq_len"]
+    for step, m in hist:
+        print(f"[train] {cfg.name} step {step}{' (first)' if step == 0 else ''}"
+              f": loss {m['loss']:.6f} grad_norm {m['grad_norm']:.6f} lr "
+              f"{m['lr']:.6g} wall {m['step_time_s']:.4f}s")
+    warm = times[1:]
+    tok_s = tokens * len(warm) / sum(warm)
+    print(f"[train] {cfg.name}: batch {run['global_batch']} x "
+          f"{run['seq_len']} tokens in {run['microbatches']} microbatches, "
+          f"remat {run['remat']!r}; first step {times[0]:.4f}s; steps 2-"
+          f"{run['steps']}: median {statistics.median(warm):.4f}s, "
+          f"{tok_s:.1f} tokens/s; peak memory {peak / 2**30:.2f} GiB "
+          f"({peak / 1e9:.2f} GB)")
+    check(all(np.isfinite(losses)), f"{cfg.name}: losses {losses}")
+    check(losses[-1] < losses[0],
+          f"{cfg.name}: last loss {losses[-1]} not below the first "
+          f"{losses[0]}")
+    check(peak < TRAIN_PEAK_BYTES, f"{cfg.name}: peak memory {peak} bytes")
+    batch = data.batch_at(run["steps"])
+    for attempt in range(1, PROFILER_SESSIONS + 1):
+        events, state = _profile_train_step(step_fn, state, batch)
+        if events is not None:
+            SESSIONS["whole"] += 1
+            break
+        SESSIONS["retaken"] += 1
+        print(f"[profile] {cfg.name}: profiled train step {attempt} of "
+              f"{PROFILER_SESSIONS} not whole")
+    else:
+        raise SmokeFailure(f"{cfg.name}: no whole profiled train step")
+    busy = sum(us for _, us in events) / 1e6
+    wall = statistics.median(warm)
+    by_name = {}
+    for name, us in events:
+        total, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (total + us, n + 1)
+    print(f"[profile] {cfg.name} train step (warm): wall {wall:.4f}s "
+          f"unprofiled (median of steps 2-{run['steps']}); device busy "
+          f"{busy:.4f}s; idle share {1 - busy / wall:.3f}; device events "
+          f"{len(events)}")
+    for name, (us, n) in sorted(by_name.items(),
+                                key=lambda kv: -kv[1][0])[:TOP_KERNELS]:
+        print(f"[profile]   {us / 1e3:9.3f} ms {us / 1e6 / busy:6.3f} of "
+              f"busy {n:6d}x {name[:100]}")
+    result = {"params": n_params, "peak": peak, "losses": losses,
+              "times": times, "tok_s": tok_s, "busy": busy, "wall": wall}
+    del state, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_train() -> dict:
+    """Phase 6: the six smoke configs trained on the card against the CPU
+    (``_train_smoke_agreement``), then internlm2-1.8b at full size
+    (``_train_full``).  Training takes the reference's plain path, so no
+    ``mha`` or ``wkv6`` kernel launches over the phase; an ``mha`` call on
+    an input that requires grad is refused."""
+    from repro_torch.kernels import ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False    # full f32 (smoke check)
+    torch.backends.cudnn.allow_tf32 = False
+    ops.reset_launches()
+    q = torch.randn(1, 64, 4, 64, device="cuda", requires_grad=True)
+    kv = torch.randn(1, 64, 4, 64, device="cuda")
+    try:
+        ops.mha(q, kv, kv, causal=True)
+    except RuntimeError as e:
+        check("requires grad" in str(e), f"ops.mha refused with {e}")
+    else:
+        raise SmokeFailure("ops.mha ran on an input that requires grad")
+    for arch, overrides in SMOKE_CONFIGS:
+        err = _train_smoke_agreement(arch, overrides)
+        print(f"[train] {arch} float32 on the card vs the CPU: train_loss "
+              f"within {err['loss']:.3g} relative (tol {TRAIN_LOSS_TOL}), "
+              f"gradients within {err['grad']:.3g} of each leaf's largest "
+              f"(tol {TRAIN_GRAD_TOL}), {TRAIN_SMOKE['steps']} train_loop "
+              f"steps' losses within {err['steps']:.3g} "
+              f"({', '.join(f'{x:.6f}' for x in err['losses'])})")
+    full = _train_full()
+    launched = {fn.__name__: fn.launches for fn in ops.LLM_WRAPPERS}
+    check(launched["mha"] == 0 and launched["wkv6"] == 0,
+          f"training launched kernels: {launched}")
+    print(f"[train] kernel launches over the phase: {launched} (training "
+          f"takes the plain attention and WKV, as the reference does)")
+    return full
+
+
+# --------------------------------------------------------------------------
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2720,6 +2981,7 @@ def main() -> int:
     del runner
     rows.update(phase_llm_kernels(floor))
     launches.update(phase_serve())      # pchase, mha_d256: serve-run counts
+    phase_train()
     print(f"[smoke] all phases passed in {time.perf_counter() - t0:.1f}s; "
           f"device_ms profiler sessions {SESSIONS}")
 

@@ -5,7 +5,10 @@ hand-written kernel for a CUDA tensor and the kernel's plain PyTorch
 version for a CPU tensor (the tests' path); there is no fallback between
 the two.  Each carries a plain integer ``launches`` count, one per call,
 which shows that a run went through the wrapper; ``reset_launches`` zeroes
-them all.  ``WRAPPERS`` are the four probe wrappers discovery runs;
+them all.  The kernels have no backward: ``mha`` and ``wkv6`` refuse an
+input that requires grad while grad mode is on (on the CPU too, which runs
+what the card runs), since the card's output would carry no gradient;
+training takes the reference's plain path instead.  ``WRAPPERS`` are the four probe wrappers discovery runs;
 ``LLM_WRAPPERS`` are the model kernels' (``mha``, ``wkv6``) and the
 single-chain chase (``pchase``), which no discovery path calls.
 """
@@ -61,6 +64,19 @@ def _counted(fn):
 
     wrapper.launches = 0
     return wrapper
+
+
+def _refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Raise when grad mode is on and an input requires grad: the kernel
+    writes its output through ``ctypes``, so a loss through it would lose
+    the gradient of every input silently."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad, and the kernel has no backward "
+            f"(its output would carry no gradient); call it under "
+            f"torch.no_grad(), or train through the plain path the model's "
+            f"forward takes (models.common.attention, "
+            f"models.rwkv6.wkv_chunked)")
 
 
 def _route(device: torch.device, kernel, plain):
@@ -162,6 +178,7 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check("q", q, (torch.float32, torch.bfloat16), 4, dev)
     _check("k", k, q.dtype, 4, dev)
     _check("v", v, q.dtype, 4, dev)
+    _refuse_grad("mha", q, k, v)
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     if v.shape != k.shape or k.shape[0] != b or k.shape[3] != d:
@@ -227,6 +244,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     for name, t in (("k", k), ("w", w), ("v", v)):
         _check(name, t, torch.float32, 4, dev)
     _check("u", u, torch.float32, 2, dev)
+    _refuse_grad("wkv6", r, k, v, w, u)
     b, t, h, kd = r.shape
     vd = v.shape[-1]
     if k.shape != r.shape or w.shape != r.shape or v.shape[:3] != (b, t, h) \

@@ -22,6 +22,8 @@ device.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -114,9 +116,12 @@ def chunked_scan(r, k, v, w, u, state,
         cs = torch.cumsum(lw, dim=1)                      # L_j inclusive
         lp = cs - lw                                      # L_{j-1}
         y = torch.einsum("bjhk,bhkv->bjhv", rc * torch.exp(lp), s)
-        dec = torch.exp(lp[:, :, None] - cs[:, None])     # (B, j, i, H, K)
-        att = torch.einsum("bjhk,bihk,bjihk->bjih", rc, kc, dec)
-        att = att.masked_fill(~tril[None, :, :, None], 0.0)
+        # L_{j-1} - L_i for i < j, -inf on and above the diagonal, so the
+        # exp is 0 there: unmasked, it overflows to inf at strong decays,
+        # and a mask after the exp would give NaN gradients (0 * inf)
+        gap = (lp[:, :, None] - cs[:, None]).masked_fill(
+            ~tril[None, :, :, None, None], -math.inf)     # (B, j, i, H, K)
+        att = torch.einsum("bjhk,bihk,bjihk->bjih", rc, kc, torch.exp(gap))
         diag = torch.einsum("bjhk,hk,bjhk->bjh", rc, u, kc)
         y = y + torch.einsum("bjih,bihv->bjhv", att, vc)
         y = y + diag[..., None] * vc

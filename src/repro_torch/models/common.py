@@ -9,13 +9,15 @@ to the other only through ``models.convert``.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 __all__ = ["Initializer", "rms_norm", "rope_angles", "apply_rope",
-           "attention", "swiglu", "cross_entropy", "DTYPES"]
+           "attention", "swiglu", "cross_entropy", "remat_layer", "DTYPES"]
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "float16": torch.float16}
@@ -92,8 +94,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     it attend bidirectionally (prefix-LM; with ``causal`` only, as the
     reference's); ``q_chunk``: if > 0 and Tq >= 2 * q_chunk, queries are
     taken a chunk at a time so the score matrix never materialises at
-    (Tq, Tk).  The serving path's prefill goes through the flash kernel
-    instead (``kernels.ops.mha``, which takes the same ``prefix_len``).
+    (Tq, Tk).  Training's forward runs this, as the reference's does; the
+    serving path's prefill goes through the flash kernel instead
+    (``kernels.ops.mha``, which takes the same ``prefix_len`` and refuses
+    inputs that require grad).
     """
     b, tq, hq, hd = q.shape
     tk, hkv = k.shape[1], k.shape[2]
@@ -124,6 +128,16 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def swiglu(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
            w2: torch.Tensor) -> torch.Tensor:
     return (F.silu(x @ w1) * (x @ w3)) @ w2
+
+
+def remat_layer(fn, remat: bool):
+    """``fn`` as it is, or, when ``remat``, ``fn`` whose activations are
+    recomputed in the backward pass instead of kept (non-reentrant
+    activation checkpointing: gradients reach every tensor ``fn`` reads,
+    its arguments' nested dictionaries included)."""
+    if not remat:
+        return fn
+    return functools.partial(checkpoint, fn, use_reentrant=False)
 
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,

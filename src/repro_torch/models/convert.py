@@ -1,26 +1,29 @@
-"""Cross the reference's parameters over to the port.
+"""Cross parameters between the reference's layout and the port's.
 
 The two packages draw different random numbers, so a test that holds the
 port to the reference initialises the reference, turns its parameter
 pytree into numpy arrays and hands them to ``params_from_numpy``; both then
-compute on the same weights.
+compute on the same weights.  ``params_to_numpy`` is its inverse: the
+port's parameters (or gradients, or optimizer moments, which share their
+layout) back in the reference's, so trees of the two packages compare leaf
+by leaf.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-__all__ = ["params_from_numpy"]
+__all__ = ["params_from_numpy", "params_to_numpy"]
 
 _FAMILIES = ("dense", "moe", "audio", "vlm", "ssm", "hybrid")
 
 
 def _tensor(a, device) -> torch.Tensor:
-    a = np.asarray(a)
+    a = np.array(a)                          # a copy: the port may write
     if a.dtype.name == "bfloat16":           # ml_dtypes: no numpy kind
-        bits = torch.from_numpy(np.ascontiguousarray(a).view(np.int16))
-        return bits.view(torch.bfloat16).to(device)
-    return torch.from_numpy(np.array(a)).to(device)
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(
+            device)
+    return torch.from_numpy(a).to(device)
 
 
 def _tree(tree, device, pick=lambda a: a):
@@ -58,3 +61,44 @@ def params_from_numpy(cfg, tree: dict, device: str = "cuda") -> dict:
     params["layers"] = [_tree(layers, device, lambda a, i=i: a[i])
                         for i in range(cfg.n_layers)]
     return params
+
+
+def _array(t: torch.Tensor) -> np.ndarray:
+    """A tensor -> a numpy array of its own; bfloat16 bit for bit as
+    ``ml_dtypes.bfloat16`` (the reference's numpy bfloat16), imported only
+    for such a leaf."""
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return t.view(torch.int16).numpy().copy().view(ml_dtypes.bfloat16)
+    return t.numpy().copy()
+
+
+def _numpy_tree(tree):
+    if isinstance(tree, dict):
+        return {name: _numpy_tree(sub) for name, sub in tree.items()}
+    return _array(tree)
+
+
+def _stacked(trees: list):
+    """Equal-structured dictionaries of arrays -> one dictionary of the
+    arrays stacked on a new leading axis."""
+    if isinstance(trees[0], dict):
+        return {name: _stacked([t[name] for t in trees]) for name in trees[0]}
+    return np.stack(trees)
+
+
+def params_to_numpy(cfg, params: dict) -> dict:
+    """The inverse of ``params_from_numpy``: the port's parameters (one
+    dictionary per layer) -> the reference's tree of numpy arrays, each
+    layer leaf stacked on a leading ``n_layers`` axis under ``"layers"``,
+    the rest as it is; dtypes kept (bfloat16 bit for bit)."""
+    if cfg.family not in _FAMILIES:
+        raise ValueError(f"family {cfg.family!r}: not one of {_FAMILIES}")
+    layers = params["layers"]
+    if len(layers) != cfg.n_layers:
+        raise ValueError(f"{len(layers)} layers, expected {cfg.n_layers}")
+    tree = {name: _numpy_tree(sub) for name, sub in params.items()
+            if name != "layers"}
+    tree["layers"] = _stacked([_numpy_tree(p) for p in layers])
+    return tree

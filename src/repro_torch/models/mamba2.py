@@ -9,6 +9,8 @@ PyTorch, as the reference computes them outside any kernel.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -60,12 +62,14 @@ def _ssd_chunk(s, xc, bc, cc, dtc, lac):
     # inter-chunk: y_j += exp(L_j) C_j . S
     y_inter = torch.einsum("bjn,bhpn,bjh->bjhp", cc, s, torch.exp(cs))
     # intra-chunk: att[j, i] = C_j . B_i exp(L_j - L_i) for i <= j; above
-    # the diagonal the exp overflows to inf, so mask after the multiply
-    att = torch.einsum("bjn,bin->bji", cc, bc)[..., None] * \
-        torch.exp(cs[:, :, None] - cs[:, None])      # (B, j, i, H)
+    # the diagonal L_j - L_i is set to -inf before the exp, which there
+    # overflows to inf at strong decays (a mask after the exp would give
+    # NaN gradients, 0 * inf)
     c = xc.shape[1]
     mask = torch.tril(torch.ones((c, c), dtype=torch.bool, device=xc.device))
-    att = torch.where(mask[None, :, :, None], att, att.new_zeros(()))
+    gap = (cs[:, :, None] - cs[:, None]).masked_fill(
+        ~mask[None, :, :, None], -math.inf)           # (B, j, i, H)
+    att = torch.einsum("bjn,bin->bji", cc, bc)[..., None] * torch.exp(gap)
     xdt = xc * dtc[..., None]                        # (B, C, H, P)
     y = y_inter + torch.einsum("bjih,bihp->bjhp", att, xdt)
     total = cs[:, -1]                                # (B, H)

@@ -1,21 +1,22 @@
 """RWKV6 "Finch": attention-free LM with data-dependent decay (rwkv6-3b).
 
-The port of ``repro.models.rwkv6`` for serving: token shift, the
-LoRA-parameterised decay w_t = exp(-exp(w0 + tanh(x W_a) W_b)), the bonus
-``u``, squared-ReLU channel mixing.  Layers are a Python loop over
-per-layer parameter dictionaries.  Prefill runs the WKV recurrence from a
-zero state through the WKV6 kernel (``kernels.ops.wkv6``, which pads a
-ragged prompt instead of giving way to the sequential scan); a decode step
-runs ``wkv_scan`` over its one token in plain PyTorch, as the reference
-does.
+The port of ``repro.models.rwkv6``: token shift, the LoRA-parameterised
+decay w_t = exp(-exp(w0 + tanh(x W_a) W_b)), the bonus ``u``, squared-ReLU
+channel mixing.  Layers are a Python loop over per-layer parameter
+dictionaries.  Prefill runs the WKV recurrence from a zero state through
+the WKV6 kernel (``kernels.ops.wkv6``, which pads a ragged prompt instead
+of giving way to the sequential scan); a decode step runs ``wkv_scan`` over
+its one token in plain PyTorch, as the reference does.  Training's
+``forward`` takes the reference's plain path, ``wkv_chunked`` (or
+``wkv_scan`` where the runtime's ``rwkv_chunked`` is false), never the
+kernel, each layer recomputed in the backward pass unless ``remat`` is
+``"none"``.
 
 Two plain WKV evaluators with identical semantics:
   * ``wkv_scan``    — O(T) sequential recurrence (the decode path);
   * ``wkv_chunked`` — chunk-parallel form from any state (the math of the
                       kernel; falls back to the scan when T % chunk != 0,
                       as the reference's does).
-
-Not ported: ``forward`` and ``train_loss`` (training, ``train/``).
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ import torch.nn.functional as F
 
 from ..kernels import ops
 from ..kernels.rwkv6_scan import chunked_scan
-from .common import DTYPES, Initializer, rms_norm
+from .common import DTYPES, Initializer, cross_entropy, remat_layer, rms_norm
 
 __all__ = ["init", "forward", "train_loss", "prefill", "decode_step",
            "init_cache", "cache_specs", "wkv_scan", "wkv_chunked"]
@@ -136,14 +137,42 @@ def _shift_seq(x):
 
 
 # -------------------------------------------------------------- entry pts
+def _block(cfg, p, x, wkv):
+    """One layer over a whole sequence; ``wkv(r, k, v, w, u) -> (y, state)``
+    evaluates it from a zero state: the kernel's wrapper when serving, a
+    plain evaluator when training.  Returns (out, wkv state, the last rows
+    of the two token shifts' inputs)."""
+    h1 = rms_norm(x, p["ln1"], cfg.norm_eps)
+    att, state = _time_mix(cfg, p, h1, _shift_seq(h1), wkv)
+    x = x + att
+    h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + _channel_mix(p, h2, _shift_seq(h2)), state, h1[:, -1], h2[:, -1]
+
+
+def _from_zero(evaluate, r, k, v, w, u):
+    """``evaluate`` (``wkv_chunked`` or ``wkv_scan``) from a zero state."""
+    b, _, h, hd = r.shape
+    return evaluate(r, k, v, w, u, r.new_zeros((b, h, hd, v.shape[-1])))
+
+
 def forward(cfg, params, batch, rt=None):
-    raise NotImplementedError("forward: the full-sequence forward of "
-                              "training belongs to train/, which is not "
-                              "ported")
+    """Full-sequence forward -> (logits (B, T, V), None), on the plain
+    evaluators (training's path)."""
+    use_chunked = getattr(rt, "rwkv_chunked", True) if rt else True
+    remat = (getattr(rt, "remat", "none") != "none") if rt else False
+    wkv = functools.partial(_from_zero,
+                            wkv_chunked if use_chunked else wkv_scan)
+    layer = remat_layer(functools.partial(_block, cfg, wkv=wkv), remat)
+    x = params["embed"][batch["tokens"]]
+    for p in params["layers"]:
+        x = layer(p, x)[0]
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return x @ params["head"], None
 
 
 def train_loss(cfg, params, batch, rt=None):
-    raise NotImplementedError("train_loss: train/ is not ported")
+    logits, _ = forward(cfg, params, batch, rt)
+    return cross_entropy(logits, batch["targets"])
 
 
 def init_cache(cfg, batch_size: int, max_len: int, dtype=None,
@@ -180,14 +209,10 @@ def prefill(cfg, params, batch, max_len: int):
     x = params["embed"][batch["tokens"]]
     states, att_shift, ffn_shift = [], [], []
     for p in params["layers"]:
-        h1 = rms_norm(x, p["ln1"], cfg.norm_eps)
-        att, state = _time_mix(cfg, p, h1, _shift_seq(h1), ops.wkv6)
-        x = x + att
-        h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-        x = x + _channel_mix(p, h2, _shift_seq(h2))
+        x, state, h1_last, h2_last = _block(cfg, p, x, ops.wkv6)
         states.append(state)
-        att_shift.append(h1[:, -1])
-        ffn_shift.append(h2[:, -1])
+        att_shift.append(h1_last)
+        ffn_shift.append(h2_last)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     cache = {"wkv": torch.stack(states), "att_shift": torch.stack(att_shift),
              "ffn_shift": torch.stack(ffn_shift), "len": x.shape[1]}

@@ -5,44 +5,56 @@ projected patch prefix, the prefix-LM mask, the sqrt(d) embedding scale and
 soft-capped logits): GQA with optional qk_norm, RoPE, a SwiGLU or
 mixture-of-experts FFN (``models.moe``), a KV cache.
 
-The port of ``repro.models.transformer`` for serving.  Layers are a Python
-loop over per-layer parameter dictionaries where the reference scans a
-stacked axis; the reference's sharding constraints have no counterpart on
-one card.  Prefill attention, causal from position 0 (prefix-LM over the
-patches for vlm), goes through the flash-attention kernel
-(``kernels.ops.mha``); decode attention over the cache is plain PyTorch and
-causal, as the reference leaves it outside any kernel.
+The port of ``repro.models.transformer``.  Layers are a Python loop over
+per-layer parameter dictionaries where the reference scans a stacked axis;
+the reference's sharding constraints have no counterpart on one card.
+
+* Serving: prefill attention, causal from position 0 (prefix-LM over the
+  patches for vlm), goes through the flash-attention kernel
+  (``kernels.ops.mha``); decode attention over the cache is plain PyTorch
+  and causal, as the reference leaves it outside any kernel.
+* Training: ``forward`` and ``train_loss`` take the reference's own path,
+  the plain ``common.attention`` (query-chunked past ``Runtime.q_chunk``),
+  never a kernel: the kernels have no backward and refuse inputs that
+  require grad.  ``Runtime.remat`` recomputes each layer in the backward.
 
 Batches take the reference's layouts (``Model.input_specs``): ``tokens``
 (B, T) for dense, moe and vlm, (B, K, T) for audio, and for vlm also
 ``patches`` (B, n_patches, vision_embed_dim); a decode step takes (B, 1),
-or (B, K, 1) for audio.
-
-Not ported: ``forward`` and ``train_loss`` (each raises
-``NotImplementedError`` naming what is missing).
+or (B, K, 1) for audio; ``targets`` are shaped as ``tokens`` (vlm: the
+text's alone).
 """
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 
 import torch
 
 from ..kernels import ops
-from .common import (DTYPES, Initializer, apply_rope, rms_norm, rope_angles,
+from .common import (DTYPES, Initializer, apply_rope, attention,
+                     cross_entropy, remat_layer, rms_norm, rope_angles,
                      swiglu)
-from .moe import init_moe, moe_ffn
+from .moe import init_moe, load_balance_loss, moe_ffn
 
 __all__ = ["Runtime", "init", "forward", "train_loss", "prefill",
            "decode_step", "init_cache", "cache_specs"]
 
 @dataclass(frozen=True)
 class Runtime:
-    """Execution knobs of training (``forward``, ``train_loss``), which
-    refuse every value while ``train/`` is not ported; serving takes none.
-    ``moe_impl="ep"`` (expert parallelism over a mesh) is refused here."""
+    """Execution knobs of training (``forward``, ``train_loss``); serving
+    takes none.
 
-    remat: str = "none"
+    ``q_chunk``: attention takes the queries a chunk at a time once
+    T >= 2 * q_chunk (0: never).  ``remat``: ``"none"`` keeps every layer's
+    activations for the backward pass; any other value recomputes each
+    layer there (``"save_a2a"`` keeps the moe all-to-all's outputs in the
+    reference, which one card does not have, so it is full remat here).
+    ``moe_impl="ep"`` (expert parallelism over a mesh) is refused."""
+
+    q_chunk: int = 1024          # query-chunked attention threshold
+    remat: str = "none"          # none | full | save_a2a
     moe_aux_weight: float = 0.01
     moe_impl: str = "gspmd"      # gspmd (sorted dispatch) | ep
 
@@ -118,20 +130,37 @@ def _out_proj(p, out, x):
 
 
 def _ffn(cfg, p, x):
+    """x plus the FFN of its norm -> (out, the moe router's probabilities
+    (T, E), or None for a SwiGLU FFN)."""
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     if cfg.family == "moe":
-        return x + moe_ffn(p["moe"], h, cfg)[0]
-    return x + swiglu(h, p["w1"], p["w3"], p["w2"])
+        y, probs = moe_ffn(p["moe"], h, cfg)
+        return x + y, probs
+    return x + swiglu(h, p["w1"], p["w3"], p["w2"]), None
 
 
-def block_prefill(cfg, p, x, prefix_len: int = 0):
-    """One layer over the prompt, the first ``prefix_len`` positions
-    attending to each other both ways (vlm's patches; 0 for a causal
-    prompt); returns (out, k, v) for the cache."""
+def block(cfg, p, x, attend):
+    """One layer over a whole sequence from position 0; ``attend(q, k, v)``
+    is its attention: the kernel's wrapper when serving, the plain
+    evaluator when training.  Returns (out, router probabilities or None,
+    k, v)."""
     pos = torch.arange(x.shape[1], device=x.device)
     q, k, v = _qkv(cfg, p, x, pos)
-    out = ops.mha(q, k, v, causal=True, prefix_len=prefix_len)
-    return _ffn(cfg, p, x + _out_proj(p, out, x)), k, v
+    out, probs = _ffn(cfg, p, x + _out_proj(p, attend(q, k, v), x))
+    return out, probs, k, v
+
+
+def plain_attend(prefix_len: int, q_chunk: int):
+    """Training's ``attend``: the plain attention, causal with the first
+    ``prefix_len`` positions attending to each other both ways (0: none)."""
+    return functools.partial(attention, causal=True,
+                             prefix_len=prefix_len or None, q_chunk=q_chunk)
+
+
+def kernel_attend(prefix_len: int = 0):
+    """Serving's ``attend``: the flash-attention kernel, with the same
+    mask."""
+    return functools.partial(ops.mha, causal=True, prefix_len=prefix_len)
 
 
 def block_decode(cfg, p, x, ck, cv, cur_len: int):
@@ -150,7 +179,7 @@ def block_decode(cfg, p, x, ck, cv, cur_len: int):
     probs = torch.softmax(scores, dim=-1).to(cv.dtype)
     out = torch.einsum("bkgts,bskh->btkgh", probs, cv)
     out = out.reshape(bsz, tq, hq, hd).to(x.dtype)
-    return _ffn(cfg, p, x + _out_proj(p, out, x))
+    return _ffn(cfg, p, x + _out_proj(p, out, x))[0]
 
 
 def _scaled(cfg, x):
@@ -196,15 +225,46 @@ def _logits(cfg, params, x):
 
 
 # -------------------------------------------------------------- entry pts
+def _run_layers(cfg, layers, x, prefix_len: int, rt: Runtime):
+    """Every layer over the sequence, each recomputed in the backward pass
+    unless ``rt.remat`` is ``"none"``; returns (x, router probabilities
+    stacked (L, T, E) for moe, else zeros (L, 1, 1) as the reference's)."""
+    layer = remat_layer(functools.partial(
+        block, cfg, attend=plain_attend(prefix_len, rt.q_chunk)),
+        rt.remat != "none")
+    probs = []
+    for p in layers:
+        x, pr = layer(p, x)[:2]
+        probs.append(pr if pr is not None
+                     else x.new_zeros((1, 1), dtype=torch.float32))
+    return x, torch.stack(probs)
+
+
 def forward(cfg, params, batch, rt: Runtime = Runtime()):
-    raise NotImplementedError(f"forward (remat={rt.remat!r}): the "
-                              f"full-sequence forward of training belongs to "
-                              f"train/, which is not ported")
+    """Full-sequence forward -> (logits (B, T, V), or (B, T, K, V) for
+    audio; router probabilities): vlm's logits are its text positions'."""
+    x, prefix_len = _embed_prompt(cfg, params, batch)
+    x, probs = _run_layers(cfg, params["layers"], x, prefix_len, rt)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if cfg.family == "vlm":
+        x = x[:, cfg.n_patches:]            # loss only on text positions
+    return _logits(cfg, params, x), probs
 
 
 def train_loss(cfg, params, batch, rt: Runtime = Runtime()):
-    raise NotImplementedError(f"train_loss (remat={rt.remat!r}): train/ is "
-                              f"not ported")
+    """Mean next-token cross entropy against ``batch["targets"]`` (audio's
+    (B, K, T)), plus ``rt.moe_aux_weight`` times the load-balance loss of
+    every layer's routing for moe."""
+    logits, probs = forward(cfg, params, batch, rt)
+    if cfg.family == "audio":
+        loss = cross_entropy(logits.transpose(1, 2), batch["targets"])
+    else:
+        loss = cross_entropy(logits, batch["targets"])
+    if cfg.family == "moe":
+        aux = load_balance_loss(probs.reshape(-1, probs.shape[-1]), None,
+                                cfg)
+        loss = loss + rt.moe_aux_weight * aux
+    return loss
 
 
 def init_cache(cfg, batch_size: int, max_len: int, dtype=None,
@@ -233,8 +293,9 @@ def prefill(cfg, params, batch, max_len: int):
         raise ValueError(f"prompt of {seq} positions exceeds max_len "
                          f"{max_len}")
     cache = init_cache(cfg, bsz, max_len, dtype=x.dtype, device=x.device)
+    attend = kernel_attend(prefix_len)
     for layer, p in enumerate(params["layers"]):
-        x, k, v = block_prefill(cfg, p, x, prefix_len)
+        x, _, k, v = block(cfg, p, x, attend)
         cache["k"][layer, :, :seq] = k
         cache["v"][layer, :, :seq] = v
     cache["len"] = seq

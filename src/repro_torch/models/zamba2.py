@@ -6,7 +6,7 @@ block has one set of attention and MLP weights; each of its sites
 concatenates the hidden state with the token embeddings ([h; emb], 2d) and
 maps it through the site's own projector (``site_proj``, stacked
 (sites, 2d, d)).  The block is the dense transformer's layer
-(``transformer.block_prefill``/``block_decode``) on that projection.  As
+(``transformer.block``/``block_decode``) on that projection.  As
 in the reference, the site's whole block output, its own residual over
 the projection included, is added to the residual stream.  KV caches exist
 only at the sites.
@@ -16,16 +16,19 @@ iterations over per-layer dictionaries, where the reference scans a
 stacked axis.  Prefill attention, causal from position 0, goes through the
 flash-attention kernel (``kernels.ops.mha``); decode attention over the
 cache and the Mamba2 mixer are plain PyTorch, as in the reference.
-
-Not ported: ``forward`` and ``train_loss`` (training, ``train/``).
+Training's ``forward`` runs the shared block on the plain attention
+(``transformer.block`` with ``plain_attend``), as the reference does, and
+recomputes each Mamba2 layer (not the shared block) in the backward pass
+unless ``remat`` is ``"none"``.
 """
 from __future__ import annotations
 
 import torch
 
-from .common import DTYPES, Initializer, rms_norm
+from .common import DTYPES, Initializer, cross_entropy, remat_layer, rms_norm
 from .mamba2 import dims, init_mamba2, mamba2_seq, mamba2_step
-from .transformer import block_decode, block_prefill, init_layer
+from .transformer import (block, block_decode, init_layer, kernel_attend,
+                          plain_attend)
 
 __all__ = ["init", "forward", "train_loss", "prefill", "decode_step",
            "init_cache", "cache_specs", "n_sites"]
@@ -62,14 +65,31 @@ def _site_input(params, site: int, h, emb):
 
 
 # -------------------------------------------------------------- entry pts
+def _mamba_layer(p, h, cfg):
+    """h plus one Mamba2 layer over the whole sequence from a zero state."""
+    return h + mamba2_seq(p, h, cfg)[0]
+
+
 def forward(cfg, params, batch, rt=None):
-    raise NotImplementedError("forward: the full-sequence forward of "
-                              "training belongs to train/, which is not "
-                              "ported")
+    """Full-sequence forward -> (logits (B, T, V), None)."""
+    remat = (getattr(rt, "remat", "none") != "none") if rt else False
+    q_chunk = getattr(rt, "q_chunk", 1024) if rt else 1024
+    layer = remat_layer(_mamba_layer, remat)
+    attend = plain_attend(0, q_chunk)
+    h = emb = params["embed"][batch["tokens"]]
+    every = cfg.shared_attn_every
+    for site in range(n_sites(cfg)):
+        h = h + block(cfg, params["shared"],
+                      _site_input(params, site, h, emb), attend)[0]
+        for p in params["layers"][site * every:(site + 1) * every]:
+            h = layer(p, h, cfg)
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    return h @ params["head"], None
 
 
 def train_loss(cfg, params, batch, rt=None):
-    raise NotImplementedError("train_loss: train/ is not ported")
+    logits, _ = forward(cfg, params, batch, rt)
+    return cross_entropy(logits, batch["targets"])
 
 
 def init_cache(cfg, batch_size: int, max_len: int, dtype=None,
@@ -108,9 +128,10 @@ def prefill(cfg, params, batch, max_len: int):
     h = emb = params["embed"][tokens]
     cache = init_cache(cfg, bsz, max_len, dtype=h.dtype, device=h.device)
     every = cfg.shared_attn_every
+    attend = kernel_attend()
     for site in range(n_sites(cfg)):
-        shared_out, k, v = block_prefill(cfg, params["shared"],
-                                         _site_input(params, site, h, emb))
+        shared_out, _, k, v = block(cfg, params["shared"],
+                                    _site_input(params, site, h, emb), attend)
         cache["kv_k"][site, :, :seq] = k
         cache["kv_v"][site, :, :seq] = v
         h = h + shared_out

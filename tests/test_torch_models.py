@@ -9,8 +9,7 @@ padded); the reference's through its plain attention and its sequential
 scan.  The moe family (``models.moe``) and the hybrid family
 (``models.zamba2`` over ``models.mamba2``, the shared block's attention
 through ``ops.mha``) are held the same way, and every family's
-prefill-then-decode to the reference's full-sequence ``forward`` (the port
-has no ``forward``).
+prefill-then-decode to the reference's full-sequence ``forward``.
 
 Tolerance: 1e-4 absolute and relative on logits and caches.  Everything is
 float32; the two packages associate sums differently (dense vs blockwise
