@@ -58,7 +58,9 @@ to a plain version):
 3b. service — the port's ``TopologyHTTPServer`` on 127.0.0.1:0 over a
              ``TopologyStore`` in a temporary directory and its
              ``JobEngine``: ``{"backend": "cuda"}`` submitted through
-             ``TopologyClient``, ``L1.size``, ``L1.line_size`` and
+             ``TopologyClient`` (each job's client wall printed beside its
+             time on the server, ``finished_at - started_at``),
+             ``L1.size``, ``L1.line_size`` and
              ``L2.fetch_granularity`` queried over HTTP and held to ground
              truth (one measured retry), the same request served from the
              store with no launch, ``refresh: true`` measuring again, and
@@ -179,9 +181,33 @@ to a plain version):
              over steps 2-8, and one more warm step under
              ``torch.profiler`` (device busy, idle share, top device
              operations); every loss finite, the last below the first, the
-             peak under 80 GB.
+             peak under 80 GB;
+7. checkpoint — ``checkpoint/``, ``ft/`` and the launchers at full size,
+             under a temporary directory that the phase removes (free disk
+             and host memory printed first; each must hold twice the
+             state, else the run fails): ``repro_torch.launch.train.main``
+             on internlm2-1.8b (``--steps 50 --seq 64 --global-batch 8
+             --remat full``; the launcher's ``ckpt_every=50`` saves step
+             50), printing the save's host snapshot and write seconds, the
+             bytes on disk and GB/s, the supervisor's host copy of the
+             initial state and the peak memory; step 50 restored into a
+             fresh ``init_train_state`` on the card, every leaf equal to
+             the run's final state bit for bit (restore seconds printed),
+             and ``--steps 52 --resume`` from it with finite losses;
+             ``repro_torch.launch.serve.main --ckpt-dir`` at the serve
+             phase's settings, twice, and without it: 48 ``mha`` launches
+             each (the tensor-core kernel at d 128, counted around each
+             run), equal greedy tokens from the checkpoint and others from
+             the seed-0 weights; the ``Supervisor`` on the float32
+             internlm2-1.8b-smoke (``ckpt_every=4``, 10 steps) with a
+             failure at step 6 ("restart from step 4") and at step 2
+             ("restart from scratch (no checkpoint)"), the final params
+             held to an uninterrupted run bit for bit, or else within
+             ``FT_TOL`` and bit for bit under
+             ``torch.use_deterministic_algorithms``.
 
-The ``[smoke] all phases passed`` line gives the wall time of phases 1-6.
+The ``[smoke] all phases passed`` line gives the wall time of phases 1-7
+and of phase 7 alone.
 
 The last two lines of standard output are the kernels summary and the
 device line, each one JSON object.  Exits non-zero without them when there
@@ -1300,8 +1326,15 @@ def phase_service() -> None:
         answers = {f"{name}.{attr}": client.query(job["key"],
                                                   f"{name}.{attr}")["value"]
                    for name, attr in SERVICE_PATHS}
+        # the job's own time on the server beside the client's wall, which
+        # includes the client's polls (JOB_POLL_S = 1 s when its first GET
+        # comes before the job has finished)
+        server_s = job["finished_at"] - job["started_at"]
         print(f"[service] {json.dumps(params)}: {job['state']} in "
-              f"{wall:.4f}s; store_hit {job['result']['store_hit']}; probe "
+              f"{wall:.4f}s (client), {server_s:.4f}s on the server "
+              f"(finished_at - started_at), queued "
+              f"{job['started_at'] - job['created_at']:.4f}s; store_hit "
+              f"{job['result']['store_hit']}; probe "
               f"rows {job['result']['probe_rows']}; launches {launches}; "
               f"over HTTP {answers}")
         return job, launches, answers
@@ -1856,8 +1889,9 @@ OLD_BF16_ATOL = 2e-3
 # padded to 304), 384 and 512 (32-key tiles in bf16) causal, 512 full, and
 # 640 causal (two column slices of the d 320 instantiation, each reading q
 # and k in two chunks); and bf16 at the heads of the served moe and hybrid
-# models (32 query heads on 4 kv heads at d 128, 32 on 32 at d 80) and of
-# musicgen-large (32 on 32 at d 64).  A seventh entry is a prefix of P
+# models (32 query heads on 4 kv heads at d 128, 32 on 32 at d 80), of
+# musicgen-large (32 on 32 at d 64) and of internlm2-1.8b, served from its
+# checkpoint in phase 7 (16 on 8 at d 128).  A seventh entry is a prefix of P
 # positions (the prefix-LM mask, causal past it): paligemma-3b's served
 # prefill (8 on 1 at d 256, 256 patches and 512 text positions, P 256 on
 # a 64-key tile edge), P = S, P inside a kv tile at a length that is no
@@ -1869,6 +1903,7 @@ SERVE_HEADS = (ATTN["hq"], ATTN["hkv"])
 MOE_HEADS = (32, 4)             # qwen3-moe-30b-a3b: a GQA group of 8, d 128
 ZAMBA2_HEADS = (32, 32)         # zamba2-2.7b's shared block: d 80, no GQA
 MUSICGEN_HEADS = (32, 32)       # musicgen-large: d 64, no GQA
+INTERNLM2_HEADS = (16, 8)       # internlm2-1.8b (phase 7): d 128, group 2
 WIDE_DIMS = (300, 384, 512, 640)     # past 256, beside d 320 (row 6c)
 PALIGEMMA_HEADS = (8, 1)
 PALIGEMMA_S = 256 + 512         # its 256 patches ahead of a 512-token prompt
@@ -1905,6 +1940,7 @@ ATTN_CASES = ((torch.bfloat16, 512, True, 128, *SERVE_HEADS),
               (torch.bfloat16, 512, False, 512, *SERVE_HEADS),
               (torch.float32, 512, False, 512, *SERVE_HEADS),
               (torch.bfloat16, 512, True, 128, *MOE_HEADS),
+              (torch.bfloat16, 512, True, 128, *INTERNLM2_HEADS),
               (torch.bfloat16, 512, True, 80, *ZAMBA2_HEADS),
               (torch.bfloat16, 512, True, 64, *MUSICGEN_HEADS),
               (torch.bfloat16, PALIGEMMA_S, True, 256, *PALIGEMMA_HEADS, 256),
@@ -1934,6 +1970,7 @@ ATTN_ROWS = {(128, torch.bfloat16): "mha", (128, torch.float32): "mha_f32",
 # The cases at a served model's own shape, (head dim, dtype, query heads,
 # kv heads, length, prefix) -> the row they add to.
 SERVED_HEAD_ROWS = {(128, torch.bfloat16, *MOE_HEADS, 512, 0): "mha",
+                    (128, torch.bfloat16, *INTERNLM2_HEADS, 512, 0): "mha",
                     (80, torch.bfloat16, *ZAMBA2_HEADS, 512, 0): "mha_d80",
                     (64, torch.bfloat16, *MUSICGEN_HEADS, 512, 0): "mha_d64",
                     (256, torch.bfloat16, *PALIGEMMA_HEADS, PALIGEMMA_S,
@@ -2959,6 +2996,345 @@ def phase_train() -> dict:
 
 
 # --------------------------------------------------------------------------
+# Phase 7: checkpoint/, ft/ and launch/train.py; serving from a checkpoint
+# --------------------------------------------------------------------------
+# The reference launcher's run (src/repro/launch/train.py) at full width and
+# depth: its ckpt_every=50 saves step 50; the resume trains on to 52.
+CKPT_ARCH = "internlm2-1.8b"
+CKPT_ARGV = ["--arch", CKPT_ARCH, "--seq", "64", "--global-batch", "8",
+             "--remat", "full"]
+CKPT_STEPS, CKPT_RESUME_STEPS = 50, 52
+# bytes a parameter of a bf16 state with a float32 master: the parameter,
+# then the master, m and v in float32
+STATE_BYTES_PER_PARAM = 2 + 4 + 4 + 4
+# the supervisor on the card: the reference's tiny setup in float32
+FT = dict(arch="internlm2-1.8b-smoke", steps=10, ckpt_every=4, seed=7,
+          seq_len=32, global_batch=8)
+# where the card's default mode is not bit for bit (atomic accumulation in
+# another order), the params' largest difference to an uninterrupted run,
+# of each leaf's largest |value|; the restarts must then be bit for bit
+# under torch.use_deterministic_algorithms
+FT_TOL = 1e-2
+
+
+def _mem_available() -> int:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise SmokeFailure("/proc/meminfo holds no MemAvailable")
+
+
+def _leaves_bytes(leaves) -> int:
+    return sum(t.numel() * t.element_size() for t in leaves)
+
+
+def _ckpt_train(root: str) -> dict:
+    """7a: ``launch.train.main`` at full size, saving step 50 under
+    ``root``; disk and host memory must each hold twice the state."""
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train.optimizer import tree_leaves
+
+    state_bytes = get_config(CKPT_ARCH).param_count() * STATE_BYTES_PER_PARAM
+    disk, host = shutil.disk_usage(root).free, _mem_available()
+    print(f"[ckpt] {CKPT_ARCH} state about {state_bytes / 1e9:.2f} GB; free "
+          f"disk under {root} {disk / 1e9:.2f} GB, host MemAvailable "
+          f"{host / 1e9:.2f} GB")
+    check(disk >= 2 * state_bytes,
+          f"{disk / 1e9:.2f} GB free on the disk of {root}: the checkpoint "
+          f"phase needs twice the state, {2 * state_bytes / 1e9:.2f} GB")
+    check(host >= 2 * state_bytes,
+          f"{host / 1e9:.2f} GB of host memory available: the checkpoint "
+          f"phase needs twice the state, {2 * state_bytes / 1e9:.2f} GB")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = launch_train.main(CKPT_ARGV + ["--steps", str(CKPT_STEPS),
+                                         "--ckpt-dir", root])
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    save, sup = res["checkpointer"].last_save, res["supervisor"]
+    n_bytes = _leaves_bytes(tree_leaves(res["state"]))
+    step_dir = os.path.join(root, f"step_{CKPT_STEPS:08d}")
+    on_disk = sum(os.path.getsize(os.path.join(step_dir, name))
+                  for name in os.listdir(step_dir))
+    check(res["ckpt_steps"] == [CKPT_STEPS] and save["step"] == CKPT_STEPS
+          and res["steps"] == CKPT_STEPS and res["restarts"] == 0,
+          f"the launcher's run: checkpoints {res['ckpt_steps']}, last save "
+          f"{save}, {res['steps']} steps, {res['restarts']} restarts")
+    check(all(np.isfinite(res["losses"])), f"losses {res['losses']}")
+    print(f"[ckpt] 7a launch.train {' '.join(CKPT_ARGV)} --steps "
+          f"{CKPT_STEPS}: wall {wall:.3f}s; losses {res['losses'][0]:.4f} -> "
+          f"{res['losses'][-1]:.4f}; peak memory {peak / 2**30:.2f} GiB "
+          f"({peak / 1e9:.2f} GB)")
+    print(f"[ckpt] 7a save of step {CKPT_STEPS}: host snapshot "
+          f"{save['snapshot_s']:.3f}s ({n_bytes / 1e9:.2f} GB of state, "
+          f"{n_bytes / save['snapshot_s'] / 1e9:.2f} GB/s device to host), "
+          f"write {save['write_s']:.3f}s; {on_disk} bytes "
+          f"on disk ({on_disk / 1e9:.2f} GB, "
+          f"{on_disk / save['write_s'] / 1e9:.2f} GB/s)")
+    print(f"[ckpt] 7a supervisor's host copy of init_state: "
+          f"{sup.snapshot_bytes / 1e9:.2f} GB in {sup.snapshot_s:.3f}s")
+    return {"res": res, "wall": wall, "peak": peak, "bytes": on_disk,
+            "snapshot_s": save["snapshot_s"], "write_s": save["write_s"]}
+
+
+def _ckpt_restore_resume(root: str, run: dict) -> dict:
+    """7b: step 50 restored into a fresh state on the card, every leaf
+    equal to 7a's final state; then ``--resume`` to step 52."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import get_model
+    from repro_torch.train import TrainConfig, init_train_state
+    from repro_torch.train.optimizer import tree_leaves
+
+    # 7a's state to the host: a third state beside the template and the
+    # restored one would not fit the card
+    want = [t.to("cpu", copy=True) for t in tree_leaves(run["res"]["state"])]
+    del run["res"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    template = init_train_state(get_model(get_config(CKPT_ARCH)), 1,
+                                TrainConfig(), device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got, _ = Checkpointer(root).restore(template, step=CKPT_STEPS)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    got = tree_leaves(got)
+    check(len(got) == len(want), f"{len(got)} leaves restored, "
+                                 f"{len(want)} saved")
+    for i, (g, w) in enumerate(zip(got, want)):
+        check(g.device.type == "cuda" and g.dtype == w.dtype
+              and torch.equal(g.cpu(), w),
+              f"restored leaf {i} {tuple(w.shape)} {w.dtype} differs from "
+              f"the final state of the run")
+    n_bytes = _leaves_bytes(want)
+    print(f"[ckpt] 7b restore of step {CKPT_STEPS} into a fresh "
+          f"init_train_state on the card: {restore_s:.3f}s "
+          f"({n_bytes / restore_s / 1e9:.2f} GB/s of state); all {len(got)} "
+          f"leaves equal to 7a's final state bit for bit")
+    del template, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = launch_train.main(CKPT_ARGV + ["--steps", str(CKPT_RESUME_STEPS),
+                                         "--ckpt-dir", root, "--resume"])
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    sup = res["supervisor"]
+    check(res["start"] == CKPT_STEPS
+          and res["steps"] == CKPT_RESUME_STEPS - CKPT_STEPS
+          and all(np.isfinite(res["losses"])),
+          f"the resume: start {res['start']}, {res['steps']} steps, losses "
+          f"{res['losses']}")
+    print(f"[ckpt] 7b launch.train --steps {CKPT_RESUME_STEPS} --resume: "
+          f"from step {res['start']}, losses "
+          f"{', '.join(f'{x:.4f}' for x in res['losses'])}; wall {wall:.3f}s "
+          f"(init, restore, host copy of the restored state "
+          f"{sup.snapshot_s:.3f}s, {res['steps']} steps); peak memory "
+          f"{peak / 2**30:.2f} GiB")
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"restore_s": restore_s, "resume_wall": wall, "resume_peak": peak}
+
+
+def _ckpt_serve(root: str) -> int:
+    """7c: internlm2-1.8b served from the checkpoint through
+    ``launch.serve.main --ckpt-dir`` (twice), and from its seed-0 weights;
+    returns the tensor-core attention kernel's launches in the first."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import BY_HEAD_DIM
+    from repro_torch.kernels.flash_attention import LAUNCHES as ATTN_LAUNCHES
+    from repro_torch.launch import serve
+
+    cfg = get_config(CKPT_ARCH)
+    waves = -(-SERVE["requests"] // SERVE["slots"])
+    want = {"mha": cfg.n_layers * waves, "wkv6": 0, "pchase": 0}
+    outputs = {}
+    for run, extra in (("checkpoint", ["--ckpt-dir", root]),
+                       ("checkpoint again", ["--ckpt-dir", root]),
+                       ("seed 0", [])):
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        res = serve.main(_serve_argv(cfg) + extra)
+        wall = time.perf_counter() - t0
+        counts = {fn.__name__: fn.launches for fn in ops.LLM_WRAPPERS}
+        routes = dict(ATTN_LAUNCHES)
+        by_d = {route: dict(c) for route, c in BY_HEAD_DIM.items()}
+        check(counts == want == res["launches"]
+              and routes == {"sm90": want["mha"], "cuda_core": 0}
+              and by_d == {"sm90": {cfg.resolved_head_dim: want["mha"]},
+                           "cuda_core": {}},
+              f"{CKPT_ARCH} served from {run}: launches {counts}, attention "
+              f"kernels {routes} by head dim {by_d}; expected {want}")
+        check(all(o.shape == (SERVE["max_new"],) for o in res["outputs"]),
+              f"{CKPT_ARCH} served from {run}: not {SERVE['max_new']} tokens "
+              f"for every request")
+        outputs[run] = np.stack(res["outputs"])
+        print(f"[ckpt] 7c serve {CKPT_ARCH} from {run}: main {wall:.3f}s "
+              f"(init{', restore' if extra else ''}, serve "
+              f"{res['wall_s']:.3f}s, {res['tok_per_s']:.1f} tok/s); "
+              f"launches {counts}; "
+              f"tensor-core attention {routes['sm90']}x at d "
+              f"{cfg.resolved_head_dim}; first request's tokens "
+              f"{res['outputs'][0].tolist()}")
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
+    check(np.array_equal(outputs["checkpoint"], outputs["checkpoint again"]),
+          "two serves from the checkpoint gave other tokens")
+    check(not np.array_equal(outputs["checkpoint"], outputs["seed 0"]),
+          "the serve from the checkpoint gave the seed-0 weights' tokens")
+    print(f"[ckpt] 7c greedy tokens: equal in both serves from the "
+          f"checkpoint, other than the seed-0 weights' in "
+          f"{int((outputs['checkpoint'] != outputs['seed 0']).any(1).sum())} "
+          f"of {len(outputs['seed 0'])} requests")
+    return want["mha"]
+
+
+def _ft_runs(root: str, tag: str) -> dict:
+    """The smoke config trained 10 steps on the card: uninterrupted twice,
+    and under the supervisor with a failure at step 6 (a checkpoint at 4)
+    and at step 2 (none yet): {run: (params' leaves, supervisor)}."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.data import ByteCorpus, DataConfig
+    from repro_torch.ft import FailureInjector, Supervisor
+    from repro_torch.models import get_model
+    from repro_torch.train import (OptConfig, TrainConfig, init_train_state,
+                                   make_train_step, train_loop)
+    from repro_torch.train.optimizer import tree_leaves
+
+    cfg = get_config(FT["arch"]).replace(dtype="float32")
+    model = get_model(cfg)
+    tc = TrainConfig(opt=OptConfig(lr=3e-3, warmup_steps=4, total_steps=64),
+                     ckpt_every=FT["ckpt_every"])
+    data = ByteCorpus(DataConfig(vocab_size=cfg.vocab_size,
+                                 seq_len=FT["seq_len"],
+                                 global_batch=FT["global_batch"]))
+    runs = {}
+    for run, fail_at in (("uninterrupted", None), ("again", None),
+                         ("fail at 6", 6), ("fail at 2", 2)):
+        state = init_train_state(model, FT["seed"], tc, device="cuda")
+        step_fn = make_train_step(model, tc)
+        sup = None
+        if fail_at is None:
+            state, _ = train_loop(model, tc, data, FT["steps"], state=state,
+                                  step_fn=step_fn)
+        else:
+            ck = Checkpointer(os.path.join(root, f"{tag}_{fail_at}"))
+            injector = FailureInjector({fail_at})
+            sup = Supervisor(ck, max_restarts=2)
+
+            def train_fn(st, start, ck=ck, injector=injector,
+                         step_fn=step_fn):
+                return train_loop(model, tc, data, FT["steps"], state=st,
+                                  start_step=start, checkpointer=ck,
+                                  step_fn=step_fn, callbacks=[injector])
+
+            state, _ = sup.run(train_fn, state)
+        runs[run] = ([t.detach().cpu() for t in
+                      tree_leaves(state["params"])], sup)
+    return runs
+
+
+def _ft_diff(a: list, b: list) -> tuple[bool, float]:
+    """(bit for bit, the largest difference over its leaf's largest
+    |value|)."""
+    exact = all(torch.equal(x, y) for x, y in zip(a, b))
+    err = max(float((x - y).abs().max()) / max(float(x.abs().max()), 1e-30)
+              for x, y in zip(a, b))
+    return exact, err
+
+
+def _ckpt_supervisor(root: str) -> dict:
+    """7d: the supervisor on the card, restarting from step 4's checkpoint
+    and from scratch; the final parameters against an uninterrupted run.
+    Where a run is not bit for bit (a second uninterrupted run shows the
+    card's own variation), all four again under
+    ``torch.use_deterministic_algorithms``, where they must be; its
+    warnings name the operations that have no deterministic version."""
+    import warnings
+
+    logs = {6: "restart from step 4",
+            2: "restart from scratch (no checkpoint)"}
+
+    def compare(runs, mode) -> dict:
+        want, out = runs["uninterrupted"][0], {}
+        for run in ("again", "fail at 6", "fail at 2"):
+            got, sup = runs[run]
+            if sup is not None:
+                fail_at = int(run.split()[-1])
+                check(sup.restarts == 1 and sup.log[-1] == logs[fail_at],
+                      f"supervisor {run}: {sup.restarts} restarts, log "
+                      f"{sup.log}")
+            out[run] = _ft_diff(want, got)
+            exact, err = out[run]
+            print(f"[ckpt] 7d {FT['arch']} float32, {FT['steps']} steps on "
+                  f"the card, {mode}, {run}"
+                  f"{': ' + '; '.join(sup.log) if sup else ''}: final params "
+                  f"against the uninterrupted run: "
+                  + ("bit for bit" if exact else
+                     f"largest difference {err:.3g} of its leaf's largest"))
+        return out
+
+    result = {"default": compare(_ft_runs(root, "ft"), "default")}
+    if all(exact for exact, _ in result["default"].values()):
+        print("[ckpt] 7d the restarts are bit for bit on the card")
+        return result
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            det = _ft_runs(root, "ft_det")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    nondet = sorted({str(w.message).split(".")[0] for w in caught
+                     if "deterministic" in str(w.message)})
+    print(f"[ckpt] 7d operations without a deterministic version on this "
+          f"path: {nondet or 'none'}")
+    result["deterministic"] = compare(det, "deterministic algorithms")
+    check(all(exact for exact, _ in result["deterministic"].values()),
+          "under torch.use_deterministic_algorithms the runs still differ")
+    for run, (_, err) in result["default"].items():
+        check(err <= FT_TOL, f"{run}: params differ by {err:g} of their "
+                             f"leaf's largest |value| (tol {FT_TOL})")
+    print(f"[ckpt] 7d the restarts are bit for bit under deterministic "
+          f"algorithms; in the default mode within {FT_TOL} of each leaf's "
+          f"largest |value|, as a second uninterrupted run is")
+    return result
+
+
+def phase_checkpoint() -> dict:
+    """Phase 7: train, checkpoint, restore, resume and serve internlm2-1.8b
+    at full size through the launchers, and the supervisor's restarts,
+    under a temporary directory that the phase removes."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as root:
+        run = _ckpt_train(root)
+        numbers = {key: run[key] for key in
+                   ("wall", "peak", "bytes", "snapshot_s", "write_s")}
+        numbers.update(_ckpt_restore_resume(root, run))
+        numbers["mha"] = _ckpt_serve(root)
+        numbers["ft"] = _ckpt_supervisor(root)
+    numbers["phase_s"] = time.perf_counter() - t0
+    print(f"[ckpt] phase 7 in {numbers['phase_s']:.1f}s; the temporary "
+          f"checkpoint directory removed")
+    return numbers
+
+
+# --------------------------------------------------------------------------
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2982,8 +3358,10 @@ def main() -> int:
     rows.update(phase_llm_kernels(floor))
     launches.update(phase_serve())      # pchase, mha_d256: serve-run counts
     phase_train()
-    print(f"[smoke] all phases passed in {time.perf_counter() - t0:.1f}s; "
-          f"device_ms profiler sessions {SESSIONS}")
+    ckpt = phase_checkpoint()
+    print(f"[smoke] all phases passed in {time.perf_counter() - t0:.1f}s "
+          f"(phase 7 {ckpt['phase_s']:.1f}s); device_ms profiler sessions "
+          f"{SESSIONS}")
 
     replaces = {
         "pchase_batch": "src/repro/kernels/pchase_probe.py:81",
@@ -3006,7 +3384,8 @@ def main() -> int:
         "wkv6": ("cuda", "src/repro_torch/kernels/csrc/wkv6.cu"),
     }
     paths = {**{name: None for name in ATTN_ROWS.values()},
-             "mha": "serve qwen3-14b, qwen3-moe-30b-a3b",
+             "mha": "serve qwen3-14b, qwen3-moe-30b-a3b; internlm2-1.8b "
+                    "from its checkpoint (phase 7)",
              "mha_d80": "serve zamba2-2.7b", "wkv6": "serve rwkv6-3b",
              "mha_d64": "serve musicgen-large",
              "mha_d256": "serve paligemma-3b (prefix-LM, P 256)",
@@ -3033,6 +3412,10 @@ def main() -> int:
             # transient faults (phase 3c), read around that run alone
             **({"resilient_launches": resilient[name]}
                if name in resilient else {}),
+            # the launches of the serve from the checkpoint (phase 7),
+            # read around that run alone
+            **({"checkpoint_launches": ckpt["mha"]} if name == "mha"
+               else {}),
             **{key: row[key] for key in (
                 "device_ms", "library_device_ms", "bound_level",
                 "per_load_ns", "per_load_cycles",

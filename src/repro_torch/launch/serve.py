@@ -9,9 +9,11 @@ stream through the engine, report what it took.
         --arch paligemma-3b-smoke --device cpu
 
 The port of ``repro.launch.serve`` on one card: ``--mesh`` takes only
-``1x1`` (``sharding/`` is not ported) and ``--ckpt-dir`` raises
-(``checkpoint/`` is not ported).  ``main`` returns its numbers as well as
-printing the ``[serve]`` line.
+``1x1`` (``sharding/`` is not ported).  ``--ckpt-dir`` restores the
+parameters of the latest checkpoint there (as ``launch.train`` writes it)
+into the launcher's own seed-0 parameters, in their dtype: a bfloat16
+training checkpoint serves in float32 for a ``-smoke`` config.  ``main``
+returns its numbers as well as printing the ``[serve]`` line.
 
 Requests are drawn from a generator seeded with 0, in the layout the
 family's prefill takes for one sequence: ``--prompt-len`` ids; for audio
@@ -28,6 +30,7 @@ import time
 import numpy as np
 import torch
 
+from ..checkpoint import Checkpointer
 from ..configs import get_config
 from ..kernels import ops
 from ..models import get_model
@@ -88,8 +91,6 @@ def main(argv=None) -> dict:
         raise NotImplementedError(f"--mesh {args.mesh}: sharding/ is not "
                                   f"ported; the port serves on one card "
                                   f"(1x1)")
-    if args.ckpt_dir:
-        raise NotImplementedError("--ckpt-dir: checkpoint/ is not ported")
 
     cfg = get_config(args.arch)
     default = "float32" if cfg.name.endswith("-smoke") else cfg.dtype
@@ -101,6 +102,9 @@ def main(argv=None) -> dict:
                          f"prompt + {args.max_new} new positions ({need})")
     model = get_model(cfg)
     params = model.init(seed=0, device=args.device)
+    if args.ckpt_dir:
+        state, _ = Checkpointer(args.ckpt_dir).restore({"params": params})
+        params = state["params"]
     eng = Engine(model, params, ServeConfig(
         max_len=args.max_len, slots=args.slots, device=args.device))
     reqs = requests(cfg, args.requests, args.prompt_len)

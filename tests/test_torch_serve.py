@@ -33,6 +33,7 @@ import repro.models as jmodels
 import repro_torch.configs as tconfigs
 from repro.serve.engine import Engine as JEngine
 from repro.serve.engine import ServeConfig as JServeConfig
+from repro_torch.checkpoint import Checkpointer
 from repro_torch.kernels import ops
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import Runtime, get_model, zamba2
@@ -153,7 +154,7 @@ def test_launcher_returns_numbers_and_counts_launches(arch, kernel, capsys):
     assert res["engine"].params["embed"].dtype == torch.float32
 
 
-def _unported_calls():
+def _unported_calls(root=None):
     def model(arch, **kw):
         return get_model(tconfigs.get_config(arch).replace(**kw))
 
@@ -164,14 +165,16 @@ def _unported_calls():
         "moe-ep": (lambda: Runtime(moe_impl="ep"), "moe_ep.py"),
         "mesh": (lambda: launch_serve.main(argv + ["--mesh", "2x2"]),
                  "sharding/"),
-        "ckpt-dir": (lambda: launch_serve.main(argv + ["--ckpt-dir", "x"]),
-                     "checkpoint/"),
+        # --ckpt-dir is ported; restoring onto shardings is not
+        "ckpt-dir": (lambda: Checkpointer(str(root)).restore(
+            {"embed": torch.zeros(1)}, shardings={"embed": None}),
+                     "sharding/"),
     }
 
 
 @pytest.mark.parametrize("case", list(_unported_calls()))
-def test_unported_parts_raise_naming_the_module(case):
-    call, module = _unported_calls()[case]
+def test_unported_parts_raise_naming_the_module(case, tmp_path):
+    call, module = _unported_calls(tmp_path)[case]
     ops.reset_launches()
     with pytest.raises(NotImplementedError, match=module):
         call()
