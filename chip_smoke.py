@@ -204,10 +204,29 @@ to a plain version):
              ("restart from scratch (no checkpoint)"), the final params
              held to an uninterrupted run bit for bit, or else within
              ``FT_TOL`` and bit for bit under
-             ``torch.use_deterministic_algorithms``.
+             ``torch.use_deterministic_algorithms``.  ``launch.train``
+             runs on its one-card mesh (``--mesh 1x1``, the default),
+             ``launch.serve`` without a mesh (its default);
+8. mesh    — ``sharding/`` and ``launch/mesh.py`` on a one-card ``nccl``
+             ``DeviceMesh`` (meshes of more ranks run only on the CPU, in
+             ``tests/test_torch_elastic.py``; the run says so): 8a
+             ``launch.train --mesh 1x1`` on internlm2-1.8b at phase 7's
+             settings for 6 steps, its state DTensors, against the plain
+             ``train_loop`` on the same seed, configuration and batches
+             (the losses bit for bit or within ``MESH_LOSS_TOL``, the
+             difference printed; each warm step's wall, device busy time
+             and idle share, one step of each profiled); 8b the mesh
+             state saved and restored by ``restore(shardings=...)`` onto
+             a fresh 1x1 mesh, every leaf a DTensor there and equal bit
+             for bit; 8c ``launch.serve --mesh 1x1`` at the serve phase's
+             settings, its parameters DTensors, 48 ``mha`` launches on the
+             local shards (the tensor-core kernel at d 128) and greedy
+             tokens equal to the plain engine's on the same weights; 8d every full-size
+             arch's specs on the production (16, 16) mesh under both rule
+             sets.
 
-The ``[smoke] all phases passed`` line gives the wall time of phases 1-7
-and of phase 7 alone.
+The ``[smoke] all phases passed`` line gives the wall time of phases 1-8
+and of phases 7 and 8 alone.
 
 The last two lines of standard output are the kernels summary and the
 device line, each one JSON object.  Exits non-zero without them when there
@@ -263,7 +282,7 @@ def event_ms(fn, reps: int = REPS) -> float:
     return statistics.median(times)
 
 
-PROFILER_SESSIONS = 3             # tries at a whole profiler session
+PROFILER_SESSIONS = 5             # tries at a whole profiler session
 SESSIONS = {"whole": 0, "retaken": 0}   # device_ms's sessions in this run
 MARK_CYCLES = 1000                # the marker kernel's spin
 LEAD_IN = 2                       # markers that open a session
@@ -2540,14 +2559,15 @@ def _moe_report(eng, prompts) -> dict:
     layer."""
     cfg = eng.model.cfg
     tokens = torch.as_tensor(prompts, dtype=torch.long, device=eng.device)
+    params = eng.params       # plain tensors: the launcher ran with no mesh
     state = {}
 
     def prefill():
         state["logits"], state["cache"] = eng.model.prefill(
-            eng.params, {"tokens": tokens}, SERVE["max_len"])
+            params, {"tokens": tokens}, SERVE["max_len"])
 
     def decode():
-        eng.model.decode_step(eng.params, {"tokens": torch.argmax(
+        eng.model.decode_step(params, {"tokens": torch.argmax(
             state["logits"], dim=-1)[:, None]}, state["cache"])
 
     report = {}
@@ -3093,9 +3113,13 @@ def _ckpt_restore_resume(root: str, run: dict) -> dict:
     from repro_torch.train import TrainConfig, init_train_state
     from repro_torch.train.optimizer import tree_leaves
 
+    from repro_torch.sharding.context import full
+
     # 7a's state to the host: a third state beside the template and the
-    # restored one would not fit the card
-    want = [t.to("cpu", copy=True) for t in tree_leaves(run["res"]["state"])]
+    # restored one would not fit the card (launch.train's leaves are
+    # DTensors on its 1x1 mesh; their whole values)
+    want = [full(t).to("cpu", copy=True)
+            for t in tree_leaves(run["res"]["state"])]
     del run["res"]
     gc.collect()
     torch.cuda.empty_cache()
@@ -3180,6 +3204,8 @@ def _ckpt_serve(root: str) -> int:
               f"{CKPT_ARCH} served from {run}: not {SERVE['max_new']} tokens "
               f"for every request")
         outputs[run] = np.stack(res["outputs"])
+        if run == "checkpoint":
+            launches = counts["mha"]
         print(f"[ckpt] 7c serve {CKPT_ARCH} from {run}: main {wall:.3f}s "
               f"(init{', restore' if extra else ''}, serve "
               f"{res['wall_s']:.3f}s, {res['tok_per_s']:.1f} tok/s); "
@@ -3198,7 +3224,7 @@ def _ckpt_serve(root: str) -> int:
           f"checkpoint, other than the seed-0 weights' in "
           f"{int((outputs['checkpoint'] != outputs['seed 0']).any(1).sum())} "
           f"of {len(outputs['seed 0'])} requests")
-    return want["mha"]
+    return launches
 
 
 def _ft_runs(root: str, tag: str) -> dict:
@@ -3335,6 +3361,287 @@ def phase_checkpoint() -> dict:
 
 
 # --------------------------------------------------------------------------
+# Phase 8: sharding/ and launch/mesh.py on a one-card DeviceMesh
+# --------------------------------------------------------------------------
+# internlm2-1.8b at full width and depth through launch.train --mesh 1x1 on
+# a one-card nccl DeviceMesh, with phase 7's launcher settings (a
+# host-bound step: 8 x 64 tokens); the plain train_loop on the same seed,
+# configuration and batches beside it.
+MESH_STEPS = 6
+MESH_LOSS_TOL = 1e-3         # relative, where the two runs are not bitwise
+PRODUCTION_MESH = (16, 16)
+
+
+def _mesh_plain_train():
+    """8a's yardstick: ``launch.train``'s configuration, seed, data and
+    steps through the plain ``init_train_state`` and ``train_loop``: (its
+    losses, its step walls, the plain step function, its state)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import ByteCorpus, DataConfig
+    from repro_torch.models import Runtime, get_model
+    from repro_torch.train import (OptConfig, TrainConfig, init_train_state,
+                                   make_train_step, train_loop)
+
+    argv = dict(zip(CKPT_ARGV[::2], CKPT_ARGV[1::2]))
+    cfg = get_config(CKPT_ARCH)
+    model = get_model(cfg)
+    tc = TrainConfig(opt=OptConfig(lr=1e-3, warmup_steps=10,
+                                   total_steps=MESH_STEPS),
+                     runtime=Runtime(remat=argv["--remat"]), ckpt_every=50)
+    data = ByteCorpus(DataConfig(vocab_size=cfg.vocab_size,
+                                 seq_len=int(argv["--seq"]),
+                                 global_batch=int(argv["--global-batch"])))
+    state = init_train_state(model, 0, tc, device="cuda")
+    step_fn = make_train_step(model, tc)
+    state, hist = train_loop(model, tc, data, MESH_STEPS, state=state,
+                             step_fn=step_fn)
+    return ([m["loss"] for _, m in hist], [m["step_time_s"] for _, m in hist],
+            step_fn, state, data)
+
+
+def _warm_profile(label: str, step_fn, state, batch, walls: list) -> dict:
+    """One more step under the profiler: busy and idle share of the warm
+    step, against the median unprofiled wall of steps 2 on."""
+    for attempt in range(1, PROFILER_SESSIONS + 1):
+        events, state = _profile_train_step(step_fn, state, batch)
+        if events is not None:
+            SESSIONS["whole"] += 1
+            break
+        SESSIONS["retaken"] += 1
+        print(f"[mesh] {label}: profiled step {attempt} of "
+              f"{PROFILER_SESSIONS} not whole")
+    else:
+        raise SmokeFailure(f"{label}: no whole profiled train step")
+    busy = sum(us for _, us in events) / 1e6
+    wall = statistics.median(walls[1:])
+    print(f"[mesh] 8a {label} warm step: wall {wall:.4f}s unprofiled "
+          f"(median of steps 2-{len(walls)}); device busy {busy:.4f}s; idle "
+          f"share {1 - busy / wall:.3f}; device events {len(events)}")
+    return {"wall": wall, "busy": busy, "idle": 1 - busy / wall,
+            "events": len(events), "state": state}
+
+
+def _mesh_train(root: str) -> dict:
+    """8a and 8b: launch.train --mesh 1x1 against the plain train_loop,
+    then the mesh state saved and restored onto a fresh 1x1 mesh."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as launch_mesh
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import get_model
+    from repro_torch.sharding import TRAIN_RULES, tree_shardings
+    from repro_torch.sharding.context import full
+    from repro_torch.train import TrainConfig, init_train_state
+    from repro_torch.train.optimizer import opt_state_specs, tree_leaves
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    losses, walls, step_fn, state, data = _mesh_plain_train()
+    plain_s = time.perf_counter() - t0
+    batch = data.batch_at(MESH_STEPS)
+    plain = _warm_profile("plain train_loop", step_fn, state, batch, walls)
+    del state, step_fn, plain["state"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    res = launch_train.main(CKPT_ARGV + ["--steps", str(MESH_STEPS),
+                                         "--mesh", "1x1", "--ckpt-dir",
+                                         os.path.join(root, "train")])
+    mesh_s = time.perf_counter() - t0
+    wq = res["state"]["params"]["layers"][0]["wq"]
+    check(type(wq).__name__ == "DTensor"
+          and tuple(res["mesh"].shape) == (1, 1)
+          and res["mesh"].device_type == "cuda"
+          and torch.distributed.get_backend() == "nccl",
+          f"launch.train --mesh 1x1: wq is {type(wq).__name__} on "
+          f"{res['mesh']}")
+    got = res["losses"]
+    rel = max(abs(a - b) / abs(a) for a, b in zip(losses, got))
+    check(all(np.isfinite(got)) and rel <= MESH_LOSS_TOL,
+          f"launch.train --mesh 1x1 losses {got} against train_loop's "
+          f"{losses}")
+    print(f"[mesh] 8a {CKPT_ARCH} {MESH_STEPS} steps, {' '.join(CKPT_ARGV)}: "
+          f"launch.train --mesh 1x1 (one-card nccl DeviceMesh, "
+          f"placements of wq {[str(p) for p in wq.placements]}) in "
+          f"{mesh_s:.3f}s against the plain train_loop in {plain_s:.3f}s; "
+          f"losses " + ("bit for bit" if got == losses else
+                        f"differ by {rel:.3g} relative at most")
+          + f": mesh {', '.join(f'{x:.6f}' for x in got)}; plain "
+          f"{', '.join(f'{x:.6f}' for x in losses)}")
+    print(f"[mesh] 8a step walls: mesh "
+          f"{', '.join(f'{x:.4f}' for x in res['step_s'])}s; plain "
+          f"{', '.join(f'{x:.4f}' for x in walls)}s")
+    mesh = _warm_profile("launch.train --mesh 1x1", res["step_fn"],
+                         res["state"], batch, res["step_s"])
+    print(f"[mesh] 8a DTensor's host cost on the warm step: wall "
+          f"{mesh['wall']:.4f}s against {plain['wall']:.4f}s "
+          f"({mesh['wall'] / plain['wall']:.3f}x); idle share "
+          f"{mesh['idle']:.3f} against {plain['idle']:.3f}; device busy "
+          f"{mesh['busy']:.4f}s against {plain['busy']:.4f}s")
+
+    # 8b: the mesh state saved, then restored onto a fresh 1x1 mesh
+    ck = Checkpointer(os.path.join(root, "mesh_ckpt"))
+    state = mesh.pop("state")
+    del res
+    t0 = time.perf_counter()
+    ck.save(MESH_STEPS, state)
+    save_s = time.perf_counter() - t0
+    want = [full(t).to("cpu", copy=True) for t in tree_leaves(state)]
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = get_model(get_config(CKPT_ARCH))
+    fresh = launch_mesh.make_mesh((1, 1), ("data", "model"), "cuda")
+    template = init_train_state(model, 1, TrainConfig(), device="cuda")
+    pspecs = model.param_specs()
+    logical = {"params": pspecs,
+               "opt": opt_state_specs(pspecs, TrainConfig().opt,
+                                      has_master="master" in template["opt"])}
+    shardings = tree_shardings(template, logical, TRAIN_RULES, fresh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored, _ = ck.restore(template, step=MESH_STEPS, shardings=shardings)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    del template
+    got = tree_leaves(restored)
+    check(len(got) == len(want), f"{len(got)} leaves restored of "
+                                 f"{len(want)}")
+    for i, (g, w) in enumerate(zip(got, want)):
+        check(type(g).__name__ == "DTensor" and g.device_mesh is fresh
+              and g.dtype == w.dtype and torch.equal(full(g).cpu(), w),
+              f"8b: restored leaf {i} {tuple(w.shape)} differs from the mesh "
+              f"state")
+    n_bytes = _leaves_bytes(want)
+    print(f"[mesh] 8b save of the mesh state {save_s:.3f}s "
+          f"({n_bytes / 1e9:.2f} GB); restore(shardings=...) onto a fresh "
+          f"1x1 mesh {restore_s:.3f}s; all {len(got)} leaves DTensors on the "
+          f"new mesh, equal to the saved state bit for bit")
+    del restored, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"plain": {k: plain[k] for k in ("wall", "busy", "idle")},
+            "mesh": {k: mesh[k] for k in ("wall", "busy", "idle")},
+            "loss_rel": rel, "save_s": save_s, "restore_s": restore_s}
+
+
+def _timed_serve(eng, reqs, want) -> float:
+    """The wall of a warm ``eng.serve(reqs)``, its tokens held to
+    ``want``."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = np.stack(eng.serve(reqs, max_new=SERVE["max_new"]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(np.array_equal(got, want), "a warm serve gave other tokens")
+    return wall
+
+
+def _mesh_serve() -> int:
+    """8c: launch.serve --mesh 1x1 at full size against the plain engine
+    on the same seed-0 weights and requests; returns its mha launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import BY_HEAD_DIM
+    from repro_torch.kernels.flash_attention import LAUNCHES as ATTN_LAUNCHES
+    from repro_torch.launch import serve
+    from repro_torch.models import get_model
+    from repro_torch.serve import Engine, ServeConfig
+
+    cfg = get_config(CKPT_ARCH).replace(dtype="bfloat16")
+    waves = -(-SERVE["requests"] // SERVE["slots"])
+    want = {"mha": cfg.n_layers * waves, "wkv6": 0, "pchase": 0}
+    reqs = serve.requests(cfg, SERVE["requests"], SERVE["prompt_len"])
+    params = get_model(cfg).init(seed=0, device="cuda")
+    eng = Engine(get_model(cfg), params, ServeConfig(
+        max_len=_max_len(cfg), slots=SERVE["slots"], device="cuda"))
+    plain = np.stack(eng.serve(reqs, max_new=SERVE["max_new"]))
+    plain_s = _timed_serve(eng, reqs, plain)
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    ops.reset_launches()
+    res = serve.main(_serve_argv(cfg) + ["--mesh", "1x1"])
+    counts = {fn.__name__: fn.launches for fn in ops.LLM_WRAPPERS}
+    routes = dict(ATTN_LAUNCHES)
+    by_d = {route: dict(c) for route, c in BY_HEAD_DIM.items()}
+    embed = res["engine"].params["embed"]
+    check(type(embed).__name__ == "DTensor",
+          f"launch.serve --mesh 1x1: parameters are {type(embed).__name__}")
+    check(counts == want == res["launches"]
+          and routes == {"sm90": want["mha"], "cuda_core": 0}
+          and by_d == {"sm90": {cfg.resolved_head_dim: want["mha"]},
+                       "cuda_core": {}},
+          f"launch.serve --mesh 1x1: launches {counts}, attention kernels "
+          f"{routes} by head dim {by_d}; expected {want}")
+    got = np.stack(res["outputs"])
+    check(np.array_equal(got, plain),
+          f"launch.serve --mesh 1x1 tokens differ from the plain engine's "
+          f"in {int((got != plain).any(1).sum())} of {len(plain)} requests")
+    mesh_s = _timed_serve(res["engine"], reqs, plain)
+    tokens = plain.size
+    print(f"[mesh] 8c serve {CKPT_ARCH} --mesh 1x1 (parameters DTensors, "
+          f"SERVE_RULES): the launcher's serve {res['wall_s']:.3f}s "
+          f"(prefill {res['prefill_s']:.3f}s, decode {res['decode_s']:.3f}s); "
+          f"launches {counts}, the tensor-core attention {routes['sm90']}x "
+          f"at d {cfg.resolved_head_dim} on the local shards; greedy tokens "
+          f"equal to the plain engine's in all {len(plain)} requests")
+    print(f"[mesh] 8c warm serve of the same {len(reqs)} requests: mesh "
+          f"{mesh_s:.3f}s ({tokens / mesh_s:.1f} tok/s) against the plain "
+          f"engine's {plain_s:.3f}s ({tokens / plain_s:.1f} tok/s), "
+          f"{mesh_s / plain_s:.3f}x")
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts["mha"]
+
+
+def _mesh_specs() -> None:
+    """8d: every full-size arch's resolved specs on the production (16, 16)
+    mesh under both rule sets (pure logic, no device)."""
+    from types import SimpleNamespace
+
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.models import get_model
+    from repro_torch.sharding import SERVE_RULES, TRAIN_RULES, tree_specs
+
+    mesh = SimpleNamespace(axis_names=("data", "model"),
+                           shape=PRODUCTION_MESH)
+    for arch in sorted(ARCHS):
+        model = get_model(get_config(arch))
+        shapes, logical = model.param_shapes(), model.param_specs()
+        for rules in (TRAIN_RULES, SERVE_RULES):
+            specs = tree_specs(shapes, logical, rules, mesh)
+            top = {k: v for k, v in specs.items() if k != "layers"}
+            layer = specs["layers"][0]
+            flat = {**top, **{f"layer.{k}": v for k, v in layer.items()}}
+            text = "; ".join(f"{k} {v}" for k, v in flat.items())
+            print(f"[mesh] 8d {arch} {rules.name} {PRODUCTION_MESH}: "
+                  f"{len(specs['layers'])} layers; {text}")
+
+
+def phase_mesh() -> dict:
+    """Phase 8: launch.train and launch.serve on a one-card DeviceMesh
+    against the plain paths, the mesh state restored onto a fresh mesh,
+    and the production mesh's specs."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    print("[mesh] this machine has one card: meshes of more than one rank "
+          "run only on the CPU (gloo, tests/test_torch_elastic.py); here "
+          "every mesh is 1x1 over nccl")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as root:
+        numbers = _mesh_train(root)
+    numbers["mha"] = _mesh_serve()
+    _mesh_specs()
+    numbers["phase_s"] = time.perf_counter() - t0
+    print(f"[mesh] phase 8 in {numbers['phase_s']:.1f}s")
+    return numbers
+
+
+# --------------------------------------------------------------------------
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3359,8 +3666,10 @@ def main() -> int:
     launches.update(phase_serve())      # pchase, mha_d256: serve-run counts
     phase_train()
     ckpt = phase_checkpoint()
+    mesh = phase_mesh()
     print(f"[smoke] all phases passed in {time.perf_counter() - t0:.1f}s "
-          f"(phase 7 {ckpt['phase_s']:.1f}s); device_ms profiler sessions "
+          f"(phase 7 {ckpt['phase_s']:.1f}s, phase 8 "
+          f"{mesh['phase_s']:.1f}s); device_ms profiler sessions "
           f"{SESSIONS}")
 
     replaces = {
@@ -3385,7 +3694,8 @@ def main() -> int:
     }
     paths = {**{name: None for name in ATTN_ROWS.values()},
              "mha": "serve qwen3-14b, qwen3-moe-30b-a3b; internlm2-1.8b "
-                    "from its checkpoint (phase 7)",
+                    "from its checkpoint (phase 7) and on a 1x1 "
+                    "DeviceMesh (phase 8)",
              "mha_d80": "serve zamba2-2.7b", "wkv6": "serve rwkv6-3b",
              "mha_d64": "serve musicgen-large",
              "mha_d256": "serve paligemma-3b (prefix-LM, P 256)",
@@ -3416,6 +3726,9 @@ def main() -> int:
             # read around that run alone
             **({"checkpoint_launches": ckpt["mha"]} if name == "mha"
                else {}),
+            # the launches of the serve on the one-card mesh (phase 8c),
+            # read around that run alone
+            **({"mesh_launches": mesh["mha"]} if name == "mha" else {}),
             **{key: row[key] for key in (
                 "device_ms", "library_device_ms", "bound_level",
                 "per_load_ns", "per_load_cycles",

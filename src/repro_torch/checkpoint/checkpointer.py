@@ -13,6 +13,16 @@ The port of ``repro.checkpoint.checkpointer``, in its file format:
 * rank and process count are ``torch.distributed``'s when it is
   initialised, else 0 and 1.
 
+On a mesh (the state's leaves are DTensors) ``save`` and ``save_async``
+gather each leaf's whole array (a collective every rank makes), and rank 0
+alone writes them, after a barrier, into ``proc_0.npz``; ``n_processes``
+is the world size.  ``restore(template, shardings=...)`` puts each array
+onto the mesh and placements that ``shardings`` gives its leaf (the tree
+of ``(mesh, placements)`` that ``sharding.tree_shardings`` makes), from
+whatever mesh saved it: an elastic resize restores onto a smaller mesh.
+Without ``shardings`` a DTensor leaf of the template keeps its own mesh and
+placements.
+
 bfloat16, which numpy has no type for, goes to disk as the reference's
 ``ml_dtypes`` arrays go: a two-byte void (``V2``) payload, with the dtype
 ``"bfloat16"`` in the manifest.  Restore reads each array's dtype from the
@@ -24,8 +34,7 @@ take a copy on the host before they return (``np.asarray`` of a CPU tensor
 would be a view that the next step overwrites).  ``restore`` returns new
 tensors on each template leaf's device and in its dtype, reads only the
 template's keys (each lazily from its npz) and leaves the template as it
-was.  Restoring onto other shardings (an elastic resize) needs
-``sharding/``, which is not ported: ``shardings`` must be None.
+was.
 """
 from __future__ import annotations
 
@@ -42,6 +51,8 @@ import zlib
 import numpy as np
 import torch
 
+from ..sharding.context import full, is_sharded
+
 __all__ = ["Checkpointer"]
 
 _SEP = "::"
@@ -54,6 +65,39 @@ def _process() -> tuple[int, int]:
     if dist.is_available() and dist.is_initialized():
         return dist.get_rank(), dist.get_world_size()
     return 0, 1
+
+
+def _barrier() -> None:
+    """Wait for every rank, when there is more than one."""
+    if _process()[1] > 1:
+        torch.distributed.barrier()
+
+
+def _mesh_device(mesh) -> torch.device:
+    """The device this rank holds of ``mesh``."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def _shardings(tree, prefix: tuple = ()):
+    """(key path, (mesh, placements)) of every leaf of a shardings tree
+    (dictionaries and lists with ``(mesh, placements)`` pairs at the
+    leaves), keyed as ``_paths`` keys the state."""
+    if isinstance(tree, dict):
+        for name in sorted(tree):
+            yield from _shardings(tree[name], prefix + (name,))
+    elif isinstance(tree, list):
+        for i, sub in enumerate(tree):
+            yield from _shardings(sub, prefix + (i,))
+    else:
+        key = _SEP.join(str(p) for p in prefix)
+        if not (isinstance(tree, tuple) and len(tree) == 2
+                and hasattr(tree[0], "device_type")):
+            raise TypeError(f"shardings '{key}': expected a (mesh, "
+                            f"placements) pair as sharding.tree_shardings "
+                            f"gives it, got {tree!r}")
+        yield key, tree
 
 
 def _paths(tree, prefix: tuple = ()):
@@ -190,34 +234,53 @@ class Checkpointer:
 
     # --------------------------------------------------------------- save
     def _snapshot(self, step: int, tree) -> list[tuple[str, object]]:
-        """(key path, host copy) of every leaf of ``tree``; starts
+        """(key path, host copy) of every leaf of ``tree`` (whole arrays,
+        gathered on every rank; kept by rank 0 alone); starts
         ``last_save``."""
         t0 = time.perf_counter()
+        keep = _process()[0] == 0
         # a copy, also on the CPU: the port's train step writes its state
         # in place while a background write may still be reading
-        flat = [(key, leaf.detach().to("cpu", copy=True))
-                for key, leaf in _paths(tree)]
+        flat = []
+        for key, leaf in _paths(tree):
+            whole = full(leaf.detach())
+            if keep:
+                flat.append((key, whole.to("cpu", copy=True)))
+            del whole
         self.last_save = {"step": step,
                           "snapshot_s": time.perf_counter() - t0,
                           "write_s": None}
         return flat
 
     def save(self, step: int, tree, extra: dict | None = None) -> str:
-        return self._write(step, self._snapshot(step, tree), extra or {})
+        """Write ``tree`` as step ``step`` (rank 0 writes; every rank
+        returns once it is in place)."""
+        flat = self._snapshot(step, tree)
+        _barrier()
+        if _process()[0] == 0:
+            self._write(step, flat, extra or {})
+        _barrier()
+        return self._step_dir(step)
 
     def save_async(self, step: int, tree, extra: dict | None = None) -> None:
         """Snapshot ``tree`` to the host now; write it in a background
-        thread (one writer at a time)."""
+        thread on rank 0 (one writer at a time)."""
         self.wait()
         flat = self._snapshot(step, tree)
+        _barrier()
+        if _process()[0] != 0:
+            return
         self._thread = threading.Thread(
             target=self._write, args=(step, flat, extra or {}), daemon=True)
         self._thread.start()
 
     def wait(self) -> None:
+        """Join the background write; on a mesh, every rank returns once
+        it is in place."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        _barrier()
 
     def _write(self, step: int, flat: list, extra: dict) -> str:
         t0 = time.perf_counter()
@@ -256,13 +319,15 @@ class Checkpointer:
     # ------------------------------------------------------------ restore
     def restore(self, template, step: int | None = None,
                 shardings=None) -> tuple:
-        """New tensors in the structure of ``template``, each on its leaf's
-        device and in its dtype; the latest step unless ``step`` is given.
-        Returns (tree, manifest extra)."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "Checkpointer.restore(shardings=...): sharding/ is not "
-                "ported; the port restores onto one device (shardings=None)")
+        """New tensors in the structure of ``template``, each in its leaf's
+        dtype: a DTensor on the ``(mesh, placements)`` that ``shardings``
+        gives its key, or else on the template leaf's own mesh and
+        placements where it is a DTensor, or else a tensor on its device;
+        the latest step unless ``step`` is given.  Returns (tree, manifest
+        extra)."""
+        from torch.distributed.tensor import distribute_tensor
+
+        onto = dict(_shardings(shardings)) if shardings is not None else {}
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.dir}")
@@ -284,7 +349,17 @@ class Checkpointer:
                         f"shape mismatch for '{key}': ckpt {arr.shape} vs "
                         f"template {tuple(leaf.shape)}")
                 t = _to_tensor(arr, dtypes.get(key, str(arr.dtype)))
-                leaves.append(t.to(device=leaf.device, dtype=leaf.dtype))
+                target = onto.get(key)
+                if target is None and is_sharded(leaf):
+                    target = (leaf.device_mesh, leaf.placements)
+                if target is None:
+                    leaves.append(t.to(device=leaf.device, dtype=leaf.dtype))
+                    continue
+                mesh, places = target
+                t = t.to(device=_mesh_device(mesh), dtype=leaf.dtype)
+                # every rank read the same array: each keeps its own shard
+                leaves.append(distribute_tensor(t, mesh, places,
+                                                src_data_rank=None))
         finally:
             for z in files:
                 z.close()

@@ -15,6 +15,10 @@ places:
 * it clears the failed attempt's frames (keeping the exception's ``repr``
   in the log) before it restores, so the failed step's tensors are freed
   before a second state is allocated beside the first.
+
+For a state of DTensors the copy is of each rank's local shards, which go
+back where they came from (a DTensor on a mesh of cards has no whole
+value on one host).
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..sharding.context import is_sharded
 from ..train.optimizer import tree_leaves
 
 __all__ = ["Supervisor", "StragglerDetector", "FailureInjector",
@@ -71,13 +76,15 @@ class StragglerDetector:
 
 
 def _tensors(tree) -> list[torch.Tensor]:
-    return [leaf for leaf in tree_leaves(tree)
-            if isinstance(leaf, torch.Tensor)]
+    """The tensors of ``tree``; of a DTensor, this rank's local shard."""
+    return [leaf.to_local() if is_sharded(leaf) else leaf
+            for leaf in tree_leaves(tree) if isinstance(leaf, torch.Tensor)]
 
 
 @torch.no_grad()
 def _put_back(tree, copies: list[torch.Tensor]) -> None:
-    """Write the host copies back into ``tree``'s tensors in place."""
+    """Write the host copies back into ``tree``'s tensors (local shards)
+    in place."""
     for leaf, saved in zip(_tensors(tree), copies):
         leaf.copy_(saved)
 

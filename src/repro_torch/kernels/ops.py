@@ -8,13 +8,19 @@ which shows that a run went through the wrapper; ``reset_launches`` zeroes
 them all.  The kernels have no backward: ``mha`` and ``wkv6`` refuse an
 input that requires grad while grad mode is on (on the CPU too, which runs
 what the card runs), since the card's output would carry no gradient;
-training takes the reference's plain path instead.  ``WRAPPERS`` are the four probe wrappers discovery runs;
-``LLM_WRAPPERS`` are the model kernels' (``mha``, ``wkv6``) and the
-single-chain chase (``pchase``), which no discovery path calls.
+training takes the reference's plain path instead.  ``mha`` and ``wkv6``
+also take DTensors (a model served on a mesh): the kernel runs on each
+rank's local shards where only the batch and head dimensions are sharded,
+and the inputs are redistributed to that layout first otherwise
+(``_on_shards``); the call counts once.  ``WRAPPERS`` are the four probe
+wrappers discovery runs; ``LLM_WRAPPERS`` are the model kernels' (``mha``,
+``wkv6``) and the single-chain chase (``pchase``), which no discovery path
+calls.
 """
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 import torch.nn.functional as F
@@ -29,6 +35,7 @@ from .rwkv6_scan import (CHUNK, HEAD_SIZES, head_size, pad_wkv, wkv6_kernel,
                          wkv6_plain)
 from .stream_probe import (stream_read_kernel, stream_read_plain,
                            stream_write_kernel, stream_write_plain)
+from ..sharding.context import is_sharded, replicate_like
 
 __all__ = ["pchase_batch", "eviction_batch", "stream_read", "stream_write",
            "mha", "wkv6", "pchase", "WRAPPERS", "LLM_WRAPPERS",
@@ -77,6 +84,58 @@ def _refuse_grad(name: str, *tensors: torch.Tensor) -> None:
             f"torch.no_grad(), or train through the plain path the model's "
             f"forward takes (models.common.attention, "
             f"models.rwkv6.wkv_chunked)")
+
+
+def _on_shards(fn, inputs: list, dims: list, out_dims: list):
+    """``fn`` over DTensor (or plain) ``inputs`` on each rank's local
+    shards -> its outputs as DTensors on the inputs' mesh.
+
+    ``dims[i]`` is (batch dim, head dim) of input i, each None where it has
+    none; ``out_dims`` the same of each output.  A mesh dimension along
+    which the first input is sharded on its batch (or head) dimension
+    shards every input on its batch (head) dimension, provided each such
+    dimension divides evenly by all the mesh dimensions that take it; every
+    other mesh dimension is replicated.  Heads split evenly alike keep a
+    grouped-query mapping local: query head h of a shard reads kv head
+    h // G of the same shard.  Where the kv heads cannot split as the
+    query heads do (8 query heads to 1 kv head on 2 ranks), the heads are
+    replicated, never paired across shards.  Plain inputs count as
+    replicated."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    lead = next(t for t in inputs if is_sharded(t))
+    mesh = lead.device_mesh
+    inputs = [t if is_sharded(t) else replicate_like(t, lead)
+              for t in inputs]
+    first_batch, first_head = dims[0]
+    kinds = []
+    for placement in inputs[0].placements:
+        if placement.is_shard(first_batch):
+            kinds.append(0)
+        elif first_head is not None and placement.is_shard(first_head):
+            kinds.append(1)
+        else:
+            kinds.append(None)
+    for kind in (0, 1):
+        n = math.prod(mesh.size(j) for j, k in enumerate(kinds) if k == kind)
+        if any(d[kind] is not None and t.shape[d[kind]] % n
+               for t, d in zip(inputs, dims)):
+            kinds = [None if k == kind else k for k in kinds]
+
+    def layout(d):
+        return tuple(Shard(d[k]) if k is not None and d[k] is not None
+                     else Replicate() for k in kinds)
+
+    local = []
+    for t, d in zip(inputs, dims):
+        if tuple(t.placements) != layout(d):
+            t = t.redistribute(mesh, layout(d))
+        local.append(t.to_local().contiguous())
+    outs = fn(*local)
+    single = not isinstance(outs, tuple)
+    wrapped = tuple(DTensor.from_local(o, mesh, layout(d), run_check=False)
+                    for o, d in zip((outs,) if single else outs, out_dims))
+    return wrapped[0] if single else wrapped
 
 
 def _route(device: torch.device, kernel, plain):
@@ -173,7 +232,21 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     in the prefix, and the causal mask hides it from every real query; the
     result is exact.  A ragged non-causal call would attend to the padding,
     so it raises.
+
+    DTensor inputs run on their local shards (``_on_shards``): batch and
+    heads as they are sharded, where the heads of q, k and v split alike,
+    and everything else replicated first.
     """
+    if any(is_sharded(t) for t in (q, k, v)):
+        return _on_shards(
+            functools.partial(_mha, causal=causal, prefix_len=prefix_len),
+            [q, k, v], [(0, 2)] * 3, [(0, 2)])
+    return _mha(q, k, v, causal=causal, prefix_len=prefix_len)
+
+
+def _mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+         causal: bool = True, prefix_len: int = 0) -> torch.Tensor:
+    """``mha`` on plain tensors."""
     dev = q.device
     _check("q", q, (torch.float32, torch.bfloat16), 4, dev)
     _check("k", k, q.dtype, 4, dev)
@@ -238,7 +311,22 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     any K and V and ``chunk`` as it is; only a ragged tail is padded for
     it, the same way.  There is no incoming state: the kernel starts from
     zero, as prefill does.
+
+    DTensor inputs run on their local shards (``_on_shards``): batch and
+    heads as they are sharded (u's heads with them), everything else
+    replicated first.
     """
+    if any(is_sharded(t) for t in (r, k, v, w, u)):
+        return _on_shards(functools.partial(_wkv6, chunk=chunk),
+                          [r, k, v, w, u], [(0, 2)] * 4 + [(None, 0)],
+                          [(0, 2), (0, 1)])
+    return _wkv6(r, k, v, w, u, chunk=chunk)
+
+
+def _wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+          u: torch.Tensor, *,
+          chunk: int = 32) -> tuple[torch.Tensor, torch.Tensor]:
+    """``wkv6`` on plain tensors."""
     dev = r.device
     _check("r", r, torch.float32, 4, dev)
     for name, t in (("k", k), ("w", w), ("v", v)):

@@ -7,13 +7,21 @@ stream through the engine, report what it took.
         --arch qwen3-14b-smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch paligemma-3b-smoke --device cpu
+    PYTHONPATH=src torchrun --nproc_per_node 4 -m repro_torch.launch.serve \
+        --arch internlm2-1.8b-smoke --mesh 2x2 --device cpu
 
-The port of ``repro.launch.serve`` on one card: ``--mesh`` takes only
-``1x1`` (``sharding/`` is not ported).  ``--ckpt-dir`` restores the
-parameters of the latest checkpoint there (as ``launch.train`` writes it)
-into the launcher's own seed-0 parameters, in their dtype: a bfloat16
-training checkpoint serves in float32 for a ``-smoke`` config.  ``main``
-returns its numbers as well as printing the ``[serve]`` line.
+The port of ``repro.launch.serve``.  ``--mesh DxM`` is a (data, model)
+``DeviceMesh`` over ``torchrun``'s ranks, as ``launch.train`` makes it;
+the parameters are laid out on it by ``sharding.SERVE_RULES``, ``1x1``
+included, and the engine's batches and cache live on it replicated (see
+``serve.engine``).  Without ``--mesh`` the launcher serves in one process
+on one device with plain tensors: DTensor's dispatch on the host makes a
+one-device mesh's serve about three times slower and buys no sharding.
+``--ckpt-dir`` restores the parameters of the latest checkpoint there (as
+``launch.train`` writes it, from any mesh) onto the mesh, or onto the
+device, in the launcher's own parameters' dtype: a bfloat16 training
+checkpoint serves in float32 for a ``-smoke`` config.  ``main`` returns
+its numbers as well as printing the ``[serve]`` line (rank 0).
 
 Requests are drawn from a generator seeded with 0, in the layout the
 family's prefill takes for one sequence: ``--prompt-len`` ids; for audio
@@ -29,6 +37,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..checkpoint import Checkpointer
 from ..configs import get_config
@@ -36,6 +45,9 @@ from ..kernels import ops
 from ..models import get_model
 from ..models.common import DTYPES
 from ..serve import Engine, ServeConfig
+from ..sharding import SERVE_RULES, tree_shardings
+from ..sharding.context import distribute
+from .mesh import init_process_group, make_mesh, parse_mesh
 
 __all__ = ["main", "requests"]
 
@@ -70,11 +82,14 @@ def requests(cfg, n: int, prompt_len: int) -> list:
 def main(argv=None) -> dict:
     """Serve and return ``{"arch", "device", "requests", "new_tokens",
     "frames", "wall_s", "tok_per_s", "prefill_s", "decode_s", "launches",
-    "outputs", "engine"}``; ``launches`` counts each model-kernel
-    wrapper's calls during the serve."""
+    "outputs", "engine", "mesh"}``; ``launches`` counts each model-kernel
+    wrapper's calls during the serve; ``mesh`` is None without
+    ``--mesh``."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="internlm2-1.8b-smoke")
-    ap.add_argument("--mesh", default="1x1")
+    ap.add_argument("--mesh", default=None,
+                    help="DxM data x model mesh shape; D*M ranks "
+                         "(default: one device, no mesh)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=16)
@@ -87,10 +102,6 @@ def main(argv=None) -> dict:
                     help="parameter dtype (default: float32 for -smoke "
                          "configs, else the config's)")
     args = ap.parse_args(argv)
-    if args.mesh != "1x1":
-        raise NotImplementedError(f"--mesh {args.mesh}: sharding/ is not "
-                                  f"ported; the port serves on one card "
-                                  f"(1x1)")
 
     cfg = get_config(args.arch)
     default = "float32" if cfg.name.endswith("-smoke") else cfg.dtype
@@ -100,11 +111,23 @@ def main(argv=None) -> dict:
         raise ValueError(f"--max-len {args.max_len} holds less than "
                          f"{cfg.n_patches} patches + {args.prompt_len} "
                          f"prompt + {args.max_new} new positions ({need})")
+    mesh = None
+    if args.mesh is not None:
+        d, m = parse_mesh(args.mesh)
+        device_type = torch.device(args.device).type
+        init_process_group(device_type, d * m)
+        mesh = make_mesh((d, m), ("data", "model"), device_type)
     model = get_model(cfg)
     params = model.init(seed=0, device=args.device)
+    shardings = None if mesh is None else tree_shardings(
+        params, model.param_specs(), SERVE_RULES, mesh)
     if args.ckpt_dir:
-        state, _ = Checkpointer(args.ckpt_dir).restore({"params": params})
+        state, _ = Checkpointer(args.ckpt_dir).restore(
+            {"params": params},
+            shardings=None if mesh is None else {"params": shardings})
         params = state["params"]
+    elif shardings is not None:
+        params = distribute(params, shardings)
     eng = Engine(model, params, ServeConfig(
         max_len=args.max_len, slots=args.slots, device=args.device))
     reqs = requests(cfg, args.requests, args.prompt_len)
@@ -119,18 +142,19 @@ def main(argv=None) -> dict:
                 for fn in ops.LLM_WRAPPERS}
     toks = sum(o.size for o in outs)
     frames = sum(o.shape[0] for o in outs)
-    print(f"[serve] arch={cfg.name} mesh={args.mesh} device={eng.device} "
-          f"dtype={cfg.dtype} requests={len(reqs)} new_tokens={toks} "
-          f"frames={frames} "
-          f"wall={wall:.2f}s throughput={toks / wall:.1f} tok/s "
-          f"prefill={eng.stats['prefill_s']:.3f}s "
-          f"decode={eng.stats['decode_s']:.3f}s launches={launches}")
+    if mesh is None or dist.get_rank() == 0:
+        print(f"[serve] arch={cfg.name} mesh={args.mesh} "
+              f"device={eng.device} dtype={cfg.dtype} "
+              f"requests={len(reqs)} new_tokens={toks} frames={frames} "
+              f"wall={wall:.2f}s throughput={toks / wall:.1f} tok/s "
+              f"prefill={eng.stats['prefill_s']:.3f}s "
+              f"decode={eng.stats['decode_s']:.3f}s launches={launches}")
     return {"arch": cfg.name, "device": str(eng.device),
             "requests": reqs, "new_tokens": toks, "frames": frames,
             "wall_s": wall,
             "tok_per_s": toks / wall, "prefill_s": eng.stats["prefill_s"],
             "decode_s": eng.stats["decode_s"], "launches": launches,
-            "outputs": outs, "engine": eng}
+            "outputs": outs, "engine": eng, "mesh": mesh}
 
 
 if __name__ == "__main__":

@@ -16,8 +16,9 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-__all__ = ["Initializer", "rms_norm", "rope_angles", "apply_rope",
-           "attention", "swiglu", "cross_entropy", "remat_layer", "DTYPES"]
+__all__ = ["Initializer", "ShapeInitializer", "AxesInitializer", "rms_norm",
+           "rope_angles", "apply_rope", "attention", "swiglu",
+           "cross_entropy", "remat_layer", "DTYPES"]
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "float16": torch.float16}
@@ -25,24 +26,58 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 
 class Initializer:
     """Draws parameters in a fixed order from ``generator``, on its device,
-    in ``dtype``; normals are drawn in float32, scaled, then cast."""
+    in ``dtype``; normals are drawn in float32, scaled, then cast.  Every
+    call names the leaf's logical axes (``axes``), as the reference's
+    ``ParamBuilder.add`` does; ``ShapeInitializer`` and ``AxesInitializer``
+    run the same ``init`` code for the shapes and the axes alone."""
 
     def __init__(self, generator: torch.Generator, dtype: torch.dtype):
         self.generator = generator
         self.dtype = dtype
         self.device = generator.device
 
-    def normal(self, *shape: int) -> torch.Tensor:
+    def normal(self, *shape: int, axes: tuple[str, ...]) -> torch.Tensor:
+        _check_axes(shape, axes)
         fan_in = shape[0] if len(shape) > 1 else shape[-1]
         x = torch.randn(shape, generator=self.generator, device=self.device,
                         dtype=torch.float32)
         return x.mul_(1.0 / math.sqrt(max(fan_in, 1))).to(self.dtype)
 
-    def ones(self, *shape: int) -> torch.Tensor:
+    def ones(self, *shape: int, axes: tuple[str, ...]) -> torch.Tensor:
+        _check_axes(shape, axes)
         return torch.ones(shape, dtype=self.dtype, device=self.device)
 
-    def zeros(self, *shape: int) -> torch.Tensor:
+    def zeros(self, *shape: int, axes: tuple[str, ...]) -> torch.Tensor:
+        _check_axes(shape, axes)
         return torch.zeros(shape, dtype=self.dtype, device=self.device)
+
+
+def _check_axes(shape: tuple, axes: tuple) -> None:
+    if not isinstance(axes, tuple) or len(axes) != len(shape):
+        raise ValueError(f"logical axes {axes!r} do not name the "
+                         f"{len(shape)} dimensions of {shape}")
+
+
+class ShapeInitializer(Initializer):
+    """Leaves as tensors on the ``meta`` device: shapes and dtypes, no
+    storage and no draw (a ``torch.Generator`` has no ``meta`` device)."""
+
+    def __init__(self, dtype: torch.dtype):
+        self.dtype = dtype
+        self.device = torch.device("meta")
+
+    def normal(self, *shape: int, axes: tuple[str, ...]) -> torch.Tensor:
+        return self.zeros(*shape, axes=axes)
+
+
+class AxesInitializer:
+    """Leaves as their logical axes (tuples of names)."""
+
+    def normal(self, *shape: int, axes: tuple[str, ...]) -> tuple:
+        _check_axes(shape, axes)
+        return axes
+
+    ones = zeros = normal
 
 
 # ------------------------------------------------------------------ layers
@@ -145,8 +180,11 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
     """Mean token CE. logits (..., V) any dtype; targets int (...)."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
-    nll = logz - gold
+    # the difference is taken before the gathered axis is dropped: on a
+    # vocab-sharded DTensor the gather's partial result carries a mask of
+    # the gather's own shape
+    gold = torch.gather(logits, -1, targets[..., None].long())
+    nll = (logz[..., None] - gold)[..., 0]
     if weights is None:
         return nll.mean()
     return (nll * weights).sum() / torch.clamp(weights.sum(), min=1.0)

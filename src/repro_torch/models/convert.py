@@ -13,6 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..sharding.context import full
+
 __all__ = ["params_from_numpy", "params_to_numpy"]
 
 _FAMILIES = ("dense", "moe", "audio", "vlm", "ssm", "hybrid")
@@ -64,10 +66,10 @@ def params_from_numpy(cfg, tree: dict, device: str = "cuda") -> dict:
 
 
 def _array(t: torch.Tensor) -> np.ndarray:
-    """A tensor -> a numpy array of its own; bfloat16 bit for bit as
-    ``ml_dtypes.bfloat16`` (the reference's numpy bfloat16), imported only
-    for such a leaf."""
-    t = t.detach().cpu().contiguous()
+    """A tensor (a DTensor's whole value) -> a numpy array of its own;
+    bfloat16 bit for bit as ``ml_dtypes.bfloat16`` (the reference's numpy
+    bfloat16), imported only for such a leaf."""
+    t = full(t.detach()).cpu().contiguous()
     if t.dtype == torch.bfloat16:
         import ml_dtypes
         return t.view(torch.int16).numpy().copy().view(ml_dtypes.bfloat16)

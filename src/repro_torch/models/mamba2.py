@@ -31,15 +31,17 @@ def init_mamba2(ini: Initializer, cfg) -> dict:
     d_in, h, _, n = dims(cfg)
     conv_dim = d_in + 2 * n
     # in_proj emits [z (d_in), x (d_in), B (n), C (n), dt (h)]
-    return {"ln": ini.ones(d),
-            "in_proj": ini.normal(d, 2 * d_in + 2 * n + h),
-            "conv_w": ini.normal(cfg.ssm_conv_width, conv_dim),
-            "conv_b": ini.zeros(conv_dim),
-            "a_log": ini.zeros(h),
-            "d_skip": ini.ones(h),
-            "dt_bias": ini.zeros(h),
-            "out_norm": ini.ones(d_in),
-            "out_proj": ini.normal(d_in, d)}
+    return {"ln": ini.ones(d, axes=("embed",)),
+            "in_proj": ini.normal(d, 2 * d_in + 2 * n + h,
+                                  axes=("embed", "inner")),
+            "conv_w": ini.normal(cfg.ssm_conv_width, conv_dim,
+                                 axes=("conv", "inner")),
+            "conv_b": ini.zeros(conv_dim, axes=("inner",)),
+            "a_log": ini.zeros(h, axes=("state_heads",)),
+            "d_skip": ini.ones(h, axes=("state_heads",)),
+            "dt_bias": ini.zeros(h, axes=("state_heads",)),
+            "out_norm": ini.ones(d_in, axes=("inner",)),
+            "out_proj": ini.normal(d_in, d, axes=("inner", "embed"))}
 
 
 def _split(cfg, zxbcdt):

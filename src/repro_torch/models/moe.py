@@ -19,6 +19,12 @@ the inverse of the sort and the k rows of a token are summed in a fixed
 order: deterministic, and equal to the scatter-add up to the order of the
 sum.  The expert matmuls are ``einsum`` (cuBLAS), as the reference computes
 them outside any kernel.
+
+On a mesh (DTensor activations) the routing, dispatch and combine run on
+every rank's replicated copy of the tokens, whose sorts and scatters
+DTensor has no sharding rule for, and the expert SwiGLU runs on the expert
+buffer as a DTensor against the expert weights' own placements
+(``_moe_ffn_on_mesh``); gradients flow through both.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..sharding.context import constrain, is_sharded
 from .common import Initializer
 
 __all__ = ["init_moe", "moe_ffn", "load_balance_loss", "capacity", "route",
@@ -38,10 +45,10 @@ def init_moe(ini: Initializer, cfg) -> dict:
     from the first axis, the expert axis of (E, d, ff), as the reference's
     ``ParamBuilder.add`` does."""
     d, ff, e = cfg.d_model, cfg.d_ff, cfg.moe_experts
-    return {"router": ini.normal(d, e),
-            "w1": ini.normal(e, d, ff),
-            "w3": ini.normal(e, d, ff),
-            "w2": ini.normal(e, ff, d)}
+    return {"router": ini.normal(d, e, axes=("embed", "experts")),
+            "w1": ini.normal(e, d, ff, axes=("experts", "embed", "ff")),
+            "w3": ini.normal(e, d, ff, axes=("experts", "embed", "ff")),
+            "w2": ini.normal(e, ff, d, axes=("experts", "ff", "embed"))}
 
 
 def capacity(tokens: int, cfg) -> int:
@@ -89,13 +96,15 @@ def dispatch(r: Routing, xt: torch.Tensor, cfg) -> torch.Tensor:
     d = xt.shape[-1]
     buf = xt.new_zeros((e * r.cap + 1, d))
     buf[r.dispatch] = xt[r.order // k]
-    return buf[: e * r.cap].reshape(e, r.cap, d)
+    return constrain(buf[: e * r.cap].reshape(e, r.cap, d),
+                     ("experts", "moe_cap", "embed_act"))
 
 
 def experts(p: dict, buf: torch.Tensor) -> torch.Tensor:
     """The batched expert SwiGLU over (E, C, d) -> (E, C, d)."""
     h = F.silu(torch.einsum("ecd,edf->ecf", buf, p["w1"])) \
         * torch.einsum("ecd,edf->ecf", buf, p["w3"])
+    h = constrain(h, ("experts", "moe_cap", "ff"))
     return torch.einsum("ecf,efd->ecd", h, p["w2"])
 
 
@@ -119,9 +128,32 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg) -> tuple[torch.Tensor,
     """x (B, S, d) -> (out (B, S, d), router probs (T, E))."""
     bsz, seq, d = x.shape
     xt = x.reshape(bsz * seq, d)
+    if is_sharded(xt):
+        y, probs = _moe_ffn_on_mesh(p, xt, cfg)
+        return y.reshape(bsz, seq, d), probs
     r = route(p, xt, cfg)
     y = combine(r, experts(p, dispatch(r, xt, cfg)), cfg)
     return y.reshape(bsz, seq, d), r.probs
+
+
+def _moe_ffn_on_mesh(p: dict, xt, cfg):
+    """``moe_ffn`` on DTensor tokens xt (T, d): routing, dispatch and
+    combine on this rank's replicated copy of the tokens and the router,
+    the expert SwiGLU as DTensors -> (out (T, d), probs (T, E)), both
+    replicated DTensors."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = xt.device_mesh
+    whole = [Replicate()] * mesh.ndim
+    tokens = xt.redistribute(mesh, whole).to_local()
+    router = p["router"].redistribute(mesh, whole).to_local()
+    r = route({"router": router}, tokens, cfg)
+    buf = DTensor.from_local(dispatch(r, tokens, cfg), mesh, whole)
+    buf = constrain(buf, ("experts", "moe_cap", "embed_act"))
+    out = experts(p, buf).redistribute(mesh, whole).to_local()
+    y = combine(r, out, cfg)
+    return (DTensor.from_local(y, mesh, whole),
+            DTensor.from_local(r.probs, mesh, whole))
 
 
 def load_balance_loss(probs: torch.Tensor, top_e, cfg) -> torch.Tensor:

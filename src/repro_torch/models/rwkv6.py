@@ -27,6 +27,7 @@ import torch.nn.functional as F
 
 from ..kernels import ops
 from ..kernels.rwkv6_scan import chunked_scan
+from ..sharding.context import constrain
 from .common import DTYPES, Initializer, cross_entropy, remat_layer, rms_norm
 
 __all__ = ["init", "forward", "train_loss", "prefill", "decode_step",
@@ -69,28 +70,31 @@ _MIXES = ("mu_r", "mu_k", "mu_v", "mu_g", "mu_w", "mu_ffn_k", "mu_ffn_r")
 
 def _init_layer(ini: Initializer, cfg) -> dict:
     d, ff, lora = cfg.d_model, cfg.d_ff, cfg.rwkv_decay_lora
-    p = {"ln1": ini.ones(d), "ln2": ini.ones(d)}
+    embed = ("embed",)
+    p = {"ln1": ini.ones(d, axes=embed), "ln2": ini.ones(d, axes=embed)}
     for mu in _MIXES:
-        p[mu] = ini.zeros(d)
-    p["w0"] = ini.zeros(d)
-    p["w_lora_a"] = ini.normal(d, lora)
-    p["w_lora_b"] = ini.normal(lora, d)
-    p["u"] = ini.zeros(d)
-    for name in ("wr", "wk", "wv", "wg", "wo"):
-        p[name] = ini.normal(d, d)
-    p["ln_x"] = ini.ones(d)
-    p["ffn_k"] = ini.normal(d, ff)
-    p["ffn_v"] = ini.normal(ff, d)
-    p["ffn_r"] = ini.normal(d, d)
+        p[mu] = ini.zeros(d, axes=embed)
+    p["w0"] = ini.zeros(d, axes=embed)
+    p["w_lora_a"] = ini.normal(d, lora, axes=("embed", "lora"))
+    p["w_lora_b"] = ini.normal(lora, d, axes=("lora", "embed"))
+    p["u"] = ini.zeros(d, axes=embed)
+    for name in ("wr", "wk", "wv", "wg"):
+        p[name] = ini.normal(d, d, axes=("embed", "inner"))
+    p["wo"] = ini.normal(d, d, axes=("inner", "embed"))
+    p["ln_x"] = ini.ones(d, axes=embed)
+    p["ffn_k"] = ini.normal(d, ff, axes=("embed", "ff"))
+    p["ffn_v"] = ini.normal(ff, d, axes=("ff", "embed"))
+    p["ffn_r"] = ini.normal(d, d, axes=("embed", "inner"))
     return p
 
 
-def init(cfg, generator: torch.Generator) -> dict:
-    """Parameters drawn from ``generator`` on its device."""
-    ini = Initializer(generator, DTYPES[cfg.dtype])
-    params = {"embed": ini.normal(cfg.vocab_size, cfg.d_model),
-              "head": ini.normal(cfg.d_model, cfg.vocab_size),
-              "final_norm": ini.ones(cfg.d_model)}
+def init(cfg, ini: Initializer) -> dict:
+    """Parameters drawn by ``ini`` (or their shapes or logical axes)."""
+    params = {"embed": ini.normal(cfg.vocab_size, cfg.d_model,
+                                  axes=("vocab", "embed")),
+              "head": ini.normal(cfg.d_model, cfg.vocab_size,
+                                 axes=("embed", "vocab")),
+              "final_norm": ini.ones(cfg.d_model, axes=("embed",))}
     params["layers"] = [_init_layer(ini, cfg) for _ in range(cfg.n_layers)]
     return params
 
@@ -142,11 +146,14 @@ def _block(cfg, p, x, wkv):
     evaluates it from a zero state: the kernel's wrapper when serving, a
     plain evaluator when training.  Returns (out, wkv state, the last rows
     of the two token shifts' inputs)."""
+    x = constrain(x, ("batch", "seq", "embed_act"))
     h1 = rms_norm(x, p["ln1"], cfg.norm_eps)
     att, state = _time_mix(cfg, p, h1, _shift_seq(h1), wkv)
     x = x + att
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + _channel_mix(p, h2, _shift_seq(h2)), state, h1[:, -1], h2[:, -1]
+    x = constrain(x + _channel_mix(p, h2, _shift_seq(h2)),
+                  ("batch", "seq", "embed_act"))
+    return x, state, h1[:, -1], h2[:, -1]
 
 
 def _from_zero(evaluate, r, k, v, w, u):
@@ -163,11 +170,12 @@ def forward(cfg, params, batch, rt=None):
     wkv = functools.partial(_from_zero,
                             wkv_chunked if use_chunked else wkv_scan)
     layer = remat_layer(functools.partial(_block, cfg, wkv=wkv), remat)
-    x = params["embed"][batch["tokens"]]
+    x = constrain(params["embed"][batch["tokens"]],
+                  ("batch", "seq", "embed_act"))
     for p in params["layers"]:
         x = layer(p, x)[0]
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x @ params["head"], None
+    return constrain(x @ params["head"], ("batch", "seq", "vocab")), None
 
 
 def train_loss(cfg, params, batch, rt=None):

@@ -6,8 +6,10 @@ soft-capped logits): GQA with optional qk_norm, RoPE, a SwiGLU or
 mixture-of-experts FFN (``models.moe``), a KV cache.
 
 The port of ``repro.models.transformer``.  Layers are a Python loop over
-per-layer parameter dictionaries where the reference scans a stacked axis;
-the reference's sharding constraints have no counterpart on one card.
+per-layer parameter dictionaries where the reference scans a stacked axis.
+Activations are pinned by ``sharding.constrain`` at the reference's places
+(block boundaries, logits), which does nothing outside an
+``activation_sharding`` context.
 
 * Serving: prefill attention, causal from position 0 (prefix-LM over the
   patches for vlm), goes through the flash-attention kernel
@@ -33,6 +35,7 @@ from dataclasses import dataclass
 import torch
 
 from ..kernels import ops
+from ..sharding.context import constrain, replicate_like
 from .common import (DTYPES, Initializer, apply_rope, attention,
                      cross_entropy, remat_layer, rms_norm, rope_angles,
                      swiglu)
@@ -40,6 +43,7 @@ from .moe import init_moe, load_balance_loss, moe_ffn
 
 __all__ = ["Runtime", "init", "forward", "train_loss", "prefill",
            "decode_step", "init_cache", "cache_specs"]
+
 
 @dataclass(frozen=True)
 class Runtime:
@@ -49,9 +53,10 @@ class Runtime:
     ``q_chunk``: attention takes the queries a chunk at a time once
     T >= 2 * q_chunk (0: never).  ``remat``: ``"none"`` keeps every layer's
     activations for the backward pass; any other value recomputes each
-    layer there (``"save_a2a"`` keeps the moe all-to-all's outputs in the
-    reference, which one card does not have, so it is full remat here).
-    ``moe_impl="ep"`` (expert parallelism over a mesh) is refused."""
+    layer there (``"save_a2a"`` keeps the outputs of the expert-parallel
+    moe's all-to-all in the reference, which the port does not have yet, so
+    it is full remat here).  ``moe_impl="ep"`` (expert parallelism over a
+    mesh, ``models/moe_ep.py``) is refused until that module is ported."""
 
     q_chunk: int = 1024          # query-chunked attention threshold
     remat: str = "none"          # none | full | save_a2a
@@ -62,46 +67,51 @@ class Runtime:
         if self.moe_impl == "ep":
             raise NotImplementedError(
                 "moe_impl='ep': models/moe_ep.py (expert parallelism over a "
-                "mesh) and sharding/ are not ported")
+                "mesh) is not ported yet (ROADMAP.md, queue A item 6); use "
+                "moe_impl='gspmd', the sorted dispatch, on any mesh")
 
 
 # ------------------------------------------------------------------- init
 def init_layer(ini: Initializer, cfg) -> dict:
     d, hd = cfg.d_model, cfg.resolved_head_dim
     nq, nkv = cfg.n_heads, cfg.n_kv_heads
-    p = {"ln1": ini.ones(d),
-         "wq": ini.normal(d, nq, hd),
-         "wk": ini.normal(d, nkv, hd),
-         "wv": ini.normal(d, nkv, hd),
-         "wo": ini.normal(nq, hd, d)}
+    p = {"ln1": ini.ones(d, axes=("embed",)),
+         "wq": ini.normal(d, nq, hd, axes=("embed", "heads", "head_dim")),
+         "wk": ini.normal(d, nkv, hd,
+                          axes=("embed", "kv_heads", "head_dim")),
+         "wv": ini.normal(d, nkv, hd,
+                          axes=("embed", "kv_heads", "head_dim")),
+         "wo": ini.normal(nq, hd, d, axes=("heads", "head_dim", "embed"))}
     if cfg.qk_norm:
-        p["q_norm"] = ini.ones(hd)
-        p["k_norm"] = ini.ones(hd)
-    p["ln2"] = ini.ones(d)
+        p["q_norm"] = ini.ones(hd, axes=("head_dim",))
+        p["k_norm"] = ini.ones(hd, axes=("head_dim",))
+    p["ln2"] = ini.ones(d, axes=("embed",))
     if cfg.family == "moe":
         p["moe"] = init_moe(ini, cfg)
     else:
-        p["w1"] = ini.normal(d, cfg.d_ff)
-        p["w3"] = ini.normal(d, cfg.d_ff)
-        p["w2"] = ini.normal(cfg.d_ff, d)
+        p["w1"] = ini.normal(d, cfg.d_ff, axes=("embed", "ff"))
+        p["w3"] = ini.normal(d, cfg.d_ff, axes=("embed", "ff"))
+        p["w2"] = ini.normal(cfg.d_ff, d, axes=("ff", "embed"))
     return p
 
 
-def init(cfg, generator: torch.Generator) -> dict:
-    """Parameters drawn from ``generator`` on its device, with the
-    reference's names and shapes."""
-    ini = Initializer(generator, DTYPES[cfg.dtype])
+def init(cfg, ini: Initializer) -> dict:
+    """Parameters drawn by ``ini`` (or their shapes or logical axes), with
+    the reference's names, shapes and axes."""
     d, v = cfg.d_model, cfg.vocab_size
     if cfg.family == "audio":
-        params = {"embed": ini.normal(cfg.n_codebooks, v, d),
-                  "head": ini.normal(cfg.n_codebooks, d, v)}
+        params = {"embed": ini.normal(cfg.n_codebooks, v, d,
+                                      axes=("codebooks", "vocab", "embed")),
+                  "head": ini.normal(cfg.n_codebooks, d, v,
+                                     axes=("codebooks", "embed", "vocab"))}
     else:
-        params = {"embed": ini.normal(v, d)}
+        params = {"embed": ini.normal(v, d, axes=("vocab", "embed"))}
         if not cfg.tie_embeddings:
-            params["head"] = ini.normal(d, v)
+            params["head"] = ini.normal(d, v, axes=("embed", "vocab"))
     if cfg.family == "vlm":
-        params["vis_proj"] = ini.normal(cfg.vision_embed_dim, d)
-    params["final_norm"] = ini.ones(d)
+        params["vis_proj"] = ini.normal(cfg.vision_embed_dim, d,
+                                        axes=("vision", "embed"))
+    params["final_norm"] = ini.ones(d, axes=("embed",))
     params["layers"] = [init_layer(ini, cfg) for _ in range(cfg.n_layers)]
     return params
 
@@ -144,10 +154,11 @@ def block(cfg, p, x, attend):
     is its attention: the kernel's wrapper when serving, the plain
     evaluator when training.  Returns (out, router probabilities or None,
     k, v)."""
+    x = constrain(x, ("batch", "seq", "embed_act"))
     pos = torch.arange(x.shape[1], device=x.device)
     q, k, v = _qkv(cfg, p, x, pos)
     out, probs = _ffn(cfg, p, x + _out_proj(p, attend(q, k, v), x))
-    return out, probs, k, v
+    return constrain(out, ("batch", "seq", "embed_act")), probs, k, v
 
 
 def plain_attend(prefix_len: int, q_chunk: int):
@@ -165,6 +176,7 @@ def kernel_attend(prefix_len: int = 0):
 
 def block_decode(cfg, p, x, ck, cv, cur_len: int):
     """One layer, one token; writes its k and v into the cache in place."""
+    x = constrain(x, ("batch", "seq", "embed_act"))
     bsz, tq, _ = x.shape
     hd, hq, hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
     pos = torch.arange(cur_len, cur_len + tq, device=x.device)
@@ -179,7 +191,8 @@ def block_decode(cfg, p, x, ck, cv, cur_len: int):
     probs = torch.softmax(scores, dim=-1).to(cv.dtype)
     out = torch.einsum("bkgts,bskh->btkgh", probs, cv)
     out = out.reshape(bsz, tq, hq, hd).to(x.dtype)
-    return _ffn(cfg, p, x + _out_proj(p, out, x))[0]
+    return constrain(_ffn(cfg, p, x + _out_proj(p, out, x))[0],
+                     ("batch", "seq", "embed_act"))
 
 
 def _scaled(cfg, x):
@@ -221,7 +234,9 @@ def _logits(cfg, params, x):
     if cfg.logit_softcap:
         c = cfg.logit_softcap
         out = torch.tanh(out.float() / c) * c
-    return out
+    if cfg.family == "audio":
+        return constrain(out, ("batch", "seq", "codebooks", "vocab"))
+    return constrain(out, ("batch", "seq", "vocab"))
 
 
 # -------------------------------------------------------------- entry pts
@@ -244,6 +259,7 @@ def forward(cfg, params, batch, rt: Runtime = Runtime()):
     """Full-sequence forward -> (logits (B, T, V), or (B, T, K, V) for
     audio; router probabilities): vlm's logits are its text positions'."""
     x, prefix_len = _embed_prompt(cfg, params, batch)
+    x = constrain(x, ("batch", "seq", "embed_act"))
     x, probs = _run_layers(cfg, params["layers"], x, prefix_len, rt)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if cfg.family == "vlm":
@@ -288,11 +304,13 @@ def prefill(cfg, params, batch, max_len: int):
     logits (B, V), or (B, K, V) for audio; vlm's cache holds its patches'
     positions ahead of the text's."""
     x, prefix_len = _embed_prompt(cfg, params, batch)
+    x = constrain(x, ("batch", "seq", "embed_act"))
     bsz, seq = x.shape[:2]
     if seq > max_len:
         raise ValueError(f"prompt of {seq} positions exceeds max_len "
                          f"{max_len}")
-    cache = init_cache(cfg, bsz, max_len, dtype=x.dtype, device=x.device)
+    cache = cache_like(init_cache(cfg, bsz, max_len, dtype=x.dtype,
+                                   device=x.device), x)
     attend = kernel_attend(prefix_len)
     for layer, p in enumerate(params["layers"]):
         x, _, k, v = block(cfg, p, x, attend)
@@ -301,6 +319,14 @@ def prefill(cfg, params, batch, max_len: int):
     cache["len"] = seq
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _logits(cfg, params, x[:, -1:])[:, 0], cache
+
+
+def cache_like(cache: dict, x) -> dict:
+    """A new cache on x's device; on x's mesh, replicated, when x is a
+    DTensor (a decode step writes one position of it in place, which a
+    sequence-sharded layout could not take locally)."""
+    return {name: t if name == "len" else replicate_like(t, x)
+            for name, t in cache.items()}
 
 
 def decode_step(cfg, params, batch, cache):

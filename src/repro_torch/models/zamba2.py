@@ -25,10 +25,11 @@ from __future__ import annotations
 
 import torch
 
+from ..sharding.context import constrain
 from .common import DTYPES, Initializer, cross_entropy, remat_layer, rms_norm
 from .mamba2 import dims, init_mamba2, mamba2_seq, mamba2_step
-from .transformer import (block, block_decode, init_layer, kernel_attend,
-                          plain_attend)
+from .transformer import (block, block_decode, cache_like, init_layer,
+                          kernel_attend, plain_attend)
 
 __all__ = ["init", "forward", "train_loss", "prefill", "decode_step",
            "init_cache", "cache_specs", "n_sites"]
@@ -44,17 +45,17 @@ def n_sites(cfg) -> int:
     return cfg.n_layers // every
 
 
-def init(cfg, generator: torch.Generator) -> dict:
-    """Parameters drawn from ``generator`` on its device: the shared block
-    is a dense transformer layer; ``site_proj`` (sites, 2d, d) takes its
-    fan-in from the sites axis, as the reference's does."""
-    ini = Initializer(generator, DTYPES[cfg.dtype])
+def init(cfg, ini: Initializer) -> dict:
+    """Parameters drawn by ``ini`` (or their shapes or logical axes): the
+    shared block is a dense transformer layer; ``site_proj`` (sites, 2d,
+    d) takes its fan-in from the sites axis, as the reference's does."""
     d = cfg.d_model
-    return {"embed": ini.normal(cfg.vocab_size, d),
-            "head": ini.normal(d, cfg.vocab_size),
-            "final_norm": ini.ones(d),
+    return {"embed": ini.normal(cfg.vocab_size, d, axes=("vocab", "embed")),
+            "head": ini.normal(d, cfg.vocab_size, axes=("embed", "vocab")),
+            "final_norm": ini.ones(d, axes=("embed",)),
             "shared": init_layer(ini, cfg),
-            "site_proj": ini.normal(n_sites(cfg), 2 * d, d),
+            "site_proj": ini.normal(n_sites(cfg), 2 * d, d,
+                                    axes=("sites", "embed2", "embed")),
             "layers": [init_mamba2(ini, cfg) for _ in range(cfg.n_layers)]}
 
 
@@ -67,7 +68,8 @@ def _site_input(params, site: int, h, emb):
 # -------------------------------------------------------------- entry pts
 def _mamba_layer(p, h, cfg):
     """h plus one Mamba2 layer over the whole sequence from a zero state."""
-    return h + mamba2_seq(p, h, cfg)[0]
+    return constrain(h + mamba2_seq(p, h, cfg)[0],
+                     ("batch", "seq", "embed_act"))
 
 
 def forward(cfg, params, batch, rt=None):
@@ -76,15 +78,17 @@ def forward(cfg, params, batch, rt=None):
     q_chunk = getattr(rt, "q_chunk", 1024) if rt else 1024
     layer = remat_layer(_mamba_layer, remat)
     attend = plain_attend(0, q_chunk)
-    h = emb = params["embed"][batch["tokens"]]
+    h = emb = constrain(params["embed"][batch["tokens"]],
+                        ("batch", "seq", "embed_act"))
     every = cfg.shared_attn_every
     for site in range(n_sites(cfg)):
+        h = constrain(h, ("batch", "seq", "embed_act"))
         h = h + block(cfg, params["shared"],
                       _site_input(params, site, h, emb), attend)[0]
         for p in params["layers"][site * every:(site + 1) * every]:
             h = layer(p, h, cfg)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    return h @ params["head"], None
+    return constrain(h @ params["head"], ("batch", "seq", "vocab")), None
 
 
 def train_loss(cfg, params, batch, rt=None):
@@ -126,7 +130,8 @@ def prefill(cfg, params, batch, max_len: int):
     if seq > max_len:
         raise ValueError(f"prompt of {seq} tokens exceeds max_len {max_len}")
     h = emb = params["embed"][tokens]
-    cache = init_cache(cfg, bsz, max_len, dtype=h.dtype, device=h.device)
+    cache = cache_like(init_cache(cfg, bsz, max_len, dtype=h.dtype,
+                                   device=h.device), h)
     every = cfg.shared_attn_every
     attend = kernel_attend()
     for site in range(n_sites(cfg)):

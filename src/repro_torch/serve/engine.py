@@ -24,6 +24,11 @@ device) and the counts of both.  Each prefill and each decode step runs
 under a ``torch.profiler.record_function`` span (``serve.prefill``,
 ``serve.decode_step``) that also ends there, so a trace splits the device's
 time between the two by the spans' windows.
+
+Parameters may be DTensors (``launch.serve --mesh``): the batches and the
+cache then live on the parameters' mesh, replicated, the steps run with
+plain tensors counted as replicated (``sharding.context.on_mesh``), and
+the logits are gathered whole before sampling.
 """
 from __future__ import annotations
 
@@ -33,6 +38,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 from torch.profiler import record_function
+
+from ..sharding.context import full, on_mesh, replicate_like
 
 __all__ = ["ServeConfig", "Engine", "stack"]
 
@@ -78,6 +85,7 @@ class Engine:
         """Logits (B, V), or audio's (B, K, V) -> ids (B,) or (B, K): the
         argmax over the last axis, or a draw for each row of the last axis
         in order (b, then k) from ``rng``."""
+        logits = full(logits)
         if self.cfg.temperature <= 0:
             return torch.argmax(logits, dim=-1).cpu().numpy()
         z = logits.float().cpu().numpy() / self.cfg.temperature
@@ -88,8 +96,13 @@ class Engine:
         return np.array([rng.choice(p.shape[-1], p=row)
                          for row in rows]).reshape(p.shape[:-1])
 
+    def _on_mesh(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` on the parameters' mesh, replicated, where they have one."""
+        return replicate_like(t, self.params["embed"])
+
     def _tokens(self, ids: np.ndarray) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(ids, np.int64), device=self.device)
+        return self._on_mesh(torch.as_tensor(np.asarray(ids, np.int64),
+                                             device=self.device))
 
     def _batch(self, prompts) -> dict:
         """A wave's stacked prompts -> the prefill's batch on the device:
@@ -97,8 +110,9 @@ class Engine:
         if not isinstance(prompts, dict):
             return {"tokens": self._tokens(prompts)}
         proj = self.params["vis_proj"]
-        return {"patches": torch.as_tensor(np.asarray(prompts["patches"]),
-                                           device=self.device).to(proj.dtype),
+        patches = torch.as_tensor(np.asarray(prompts["patches"]),
+                                  device=self.device).to(proj.dtype)
+        return {"patches": self._on_mesh(patches),
                 "tokens": self._tokens(prompts["tokens"])}
 
     @torch.no_grad()
@@ -109,6 +123,11 @@ class Engine:
         wave -> (B, <=max_new) generations, or (B, <=max_new, K) for audio.
         With ``eos_id`` the wave stops once every sequence has sampled it
         (audio: in every codebook of a frame)."""
+        with on_mesh():
+            return self._generate(prompts, max_new, eos_id, seed)
+
+    def _generate(self, prompts, max_new: int, eos_id: int | None,
+                  seed: int) -> np.ndarray:
         if max_new < 1:
             raise ValueError(f"max_new must be at least 1, got {max_new}")
         rng = np.random.default_rng(seed)

@@ -8,8 +8,14 @@ dtype.  The arithmetic follows the reference's order (the clip scale, the
 moments, the bias corrections, the decoupled weight decay on the master),
 each step on whole tensors under ``torch.no_grad()``; parameters, moments
 and master are updated in place, which gives the same values as the
-reference's new arrays and holds no second copy of the state.  The
-reference shards the state over a mesh (ZeRO); one card holds it whole.
+reference's new arrays and holds no second copy of the state.
+
+The leaves may be DTensors (``launch.train`` lays the state out by
+``sharding.TRAIN_RULES``): each moment and the master keep their
+parameter's placements (``opt_state_specs`` mirrors its axes), the
+gradients are taken in the parameters' placements, and ``global_norm``
+reduces every sharded leaf to a whole scalar before the clip scale is
+formed, so no partial sum reaches the update.
 """
 from __future__ import annotations
 
@@ -17,6 +23,8 @@ import math
 from dataclasses import dataclass
 
 import torch
+
+from ..sharding.context import full, on_mesh, replicate_like
 
 __all__ = ["OptConfig", "init_opt_state", "opt_state_specs", "apply_updates",
            "lr_at", "global_norm", "tree_leaves", "tree_map"]
@@ -79,13 +87,14 @@ def init_opt_state(params, cfg: OptConfig) -> dict:
     tensor on the parameters' device) and, when ``cfg.master_f32`` and some
     parameter is not float32, a float32 master copy."""
     def zeros32(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return torch.zeros_like(p, dtype=torch.float32)
 
-    device = tree_leaves(params)[0].device
+    first = tree_leaves(params)[0]
     with torch.no_grad():
+        step = torch.zeros((), dtype=torch.int32, device=first.device)
         state = {"m": tree_map(zeros32, params),
                  "v": tree_map(zeros32, params),
-                 "step": torch.zeros((), dtype=torch.int32, device=device)}
+                 "step": replicate_like(step, first)}
         # for float32 parameters the master would be a second copy of them
         if cfg.master_f32 and _needs_master(params):
             state["master"] = tree_map(
@@ -112,8 +121,10 @@ def opt_state_specs(param_specs_tree, cfg: OptConfig,
 
 
 def global_norm(tree) -> torch.Tensor:
-    """The float32 norm of every leaf of ``tree`` taken together."""
-    leaves = [torch.sum(torch.square(leaf.float()))
+    """The float32 norm of every leaf of ``tree`` taken together, a plain
+    tensor: a DTensor leaf's sum of squares is reduced over its mesh
+    first."""
+    leaves = [full(torch.sum(torch.square(leaf.float())))
               for leaf in tree_leaves(tree)]
     return torch.sqrt(torch.sum(torch.stack(leaves)))
 
@@ -124,6 +135,11 @@ def apply_updates(params, grads, state: dict, cfg: OptConfig):
     float32 tensors).  ``params`` and the state's moments and master are
     updated in place and returned; ``grads`` (the parameters' layout, any
     float dtype) are read."""
+    with on_mesh():
+        return _apply_updates(params, grads, state, cfg)
+
+
+def _apply_updates(params, grads, state: dict, cfg: OptConfig):
     step = state["step"] + 1
     lr = lr_at(cfg, step)
     gnorm = global_norm(grads)

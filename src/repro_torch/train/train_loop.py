@@ -4,9 +4,11 @@ checkpoint hooks.
 The port of ``repro.train.train_loop``, eager (PyTorch has no ``jit`` to
 wrap the step in).  ``make_train_step`` builds the (state, batch) ->
 (state, metrics) function: the batch (numpy, as ``repro_torch.data``
-gives it) goes to the parameters' device, gradients come from
-``torch.autograd.grad`` through the model's ``train_loss`` (the plain path,
-no kernel), and AdamW updates the state in place.  With ``microbatches``
+gives it) goes to the parameters' device (a batch of DTensors, as
+``launch.train`` lays it out on a mesh, stays as it is), gradients come
+from ``torch.autograd.grad`` through the model's ``train_loss`` (the plain
+path, no kernel) in the parameters' placements, and AdamW updates the
+state in place; the metrics come back as plain tensors.  With ``microbatches``
 > 1 the batch is split strided, as the reference splits it (microbatch i
 takes every n-th sequence from i), and the gradients are summed in float32
 and averaged.
@@ -27,6 +29,7 @@ import numpy as np
 import torch
 
 from ..models import Runtime
+from ..sharding.context import full, is_sharded
 from .optimizer import (OptConfig, apply_updates, init_opt_state,
                         tree_leaves, tree_map)
 
@@ -64,9 +67,22 @@ def _split_batch(batch: dict, n: int) -> list[dict]:
 
 
 def _on_device(batch: dict, device: torch.device) -> dict:
-    return {name: torch.from_numpy(np.ascontiguousarray(x)).to(device)
-            if isinstance(x, np.ndarray) else x.to(device)
-            for name, x in batch.items()}
+    """Numpy fields to ``device``; tensors there too, DTensors as they
+    are."""
+    def one(x):
+        if isinstance(x, np.ndarray):
+            return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+        return x if is_sharded(x) else x.to(device)
+
+    return {name: one(x) for name, x in batch.items()}
+
+
+def _like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A gradient in its DTensor parameter's placements (a partial sum is
+    reduced here); a plain gradient as it is."""
+    if is_sharded(g) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def make_train_step(model, tc: TrainConfig) -> Callable:
@@ -79,7 +95,8 @@ def make_train_step(model, tc: TrainConfig) -> Callable:
         with torch.enable_grad():
             loss = model.train_loss(params, mb, tc.runtime)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        return loss.detach(), [torch.zeros_like(p) if g is None else g
+        return loss.detach(), [torch.zeros_like(p) if g is None
+                               else _like(g, p)
                                for p, g in zip(leaves, grads)]
 
     def step(state, batch):
@@ -89,8 +106,7 @@ def make_train_step(model, tc: TrainConfig) -> Callable:
             p.requires_grad_(True)
         batch = _on_device(batch, leaves[0].device)
         if tc.microbatches > 1:
-            acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                   for p in leaves]
+            acc = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
             loss_sum = 0.0
             for mb in _split_batch(batch, tc.microbatches):
                 loss, grads = value_and_grad(params, leaves, mb)
@@ -107,8 +123,9 @@ def make_train_step(model, tc: TrainConfig) -> Callable:
         del flat, it
         params, opt, metrics = apply_updates(params, grads, state["opt"],
                                              tc.opt)
+        metrics = {"loss": loss.float(), **metrics}
         return ({"params": params, "opt": opt},
-                {"loss": loss.float(), **metrics})
+                {name: full(value) for name, value in metrics.items()})
 
     return step
 

@@ -40,6 +40,7 @@ from repro_torch.launch import serve as launch_serve
 from repro_torch.models import get_model, transformer
 from repro_torch.models.convert import _FAMILIES, params_from_numpy
 from repro_torch.serve import Engine, ServeConfig
+from repro_torch.sharding.context import full
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ATTN_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -367,11 +368,12 @@ def test_engine_serve_equals_the_reference_greedy_loop(arch):
 
 
 def _reference_params(params: dict) -> dict:
-    """The port's parameters -> the reference's tree: layers stacked."""
-    tree = {name: jnp.asarray(t.numpy()) for name, t in params.items()
+    """The port's parameters -> the reference's tree: layers stacked (the
+    launcher's DTensors by their whole values)."""
+    tree = {name: jnp.asarray(full(t).numpy()) for name, t in params.items()
             if name != "layers"}
     tree["layers"] = {name: jnp.asarray(np.stack(
-        [layer[name].numpy() for layer in params["layers"]]))
+        [full(layer[name]).numpy() for layer in params["layers"]]))
         for name in params["layers"][0]}
     return tree
 

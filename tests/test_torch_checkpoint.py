@@ -15,7 +15,9 @@
   for bit; the port restores the reference's files bit for bit, bfloat16
   too, where the reference's own restore raises ``ValueError``.
 * A missing key raises ``KeyError`` and a wrong shape ``ValueError``;
-  ``shardings`` raises ``NotImplementedError`` naming ``sharding/``;
+  a ``shardings`` leaf that is not a (mesh, placements) pair raises
+  ``TypeError`` naming ``sharding.tree_shardings`` (restoring onto meshes
+  runs on several ranks in ``test_torch_elastic.py``);
   restore returns new tensors, reads only the template's keys and casts a
   bfloat16 payload exactly.
 * ``save_async`` takes its snapshot before it returns: an in-place change
@@ -275,7 +277,7 @@ def test_no_checkpoint_raises_file_not_found(tmp_path):
 def test_shardings_raise_naming_sharding(tmp_path):
     ck = Checkpointer(str(tmp_path))
     ck.save(1, {"a": torch.zeros(1)})
-    with pytest.raises(NotImplementedError, match="sharding/"):
+    with pytest.raises(TypeError, match="sharding.tree_shardings"):
         ck.restore({"a": torch.zeros(1)}, shardings={"a": None})
 
 

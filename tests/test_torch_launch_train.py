@@ -2,13 +2,15 @@
 
 * ``launch.train.main`` on ``internlm2-1.8b-smoke`` (bfloat16 with a
   float32 master) on the CPU over 50 steps writes step 50, which holds its
-  final state bit for bit.
+  final state (DTensors on its 1x1 mesh, compared by their whole values)
+  bit for bit.
 * ``--resume --steps 52`` restores step 50 and trains steps 50-51, bit for
   bit as ``train_loop`` from the restored state does with the launcher's
   configuration (its schedule runs to 52).
-* ``--mesh`` other than ``1x1`` raises ``NotImplementedError`` naming
-  ``sharding/``; without ``--device`` the launcher runs on the card and,
-  with none, raises.
+* a ``--mesh`` of more devices than the process group has ranks raises
+  ``ValueError`` before it writes anything (meshes of several ranks run in
+  ``test_torch_elastic.py``); without ``--device`` the launcher runs on
+  the card and, with none, raises.
 * ``launch.serve.main --ckpt-dir`` on that checkpoint serves the trained
   weights in float32: its greedy tokens equal the reference ``Engine``'s on
   the same weights (crossed by ``convert.params_to_numpy``) and the same
@@ -35,6 +37,7 @@ from repro_torch.launch import serve as launch_serve
 from repro_torch.launch import train as launch_train
 from repro_torch.models import Runtime, get_model
 from repro_torch.models.convert import params_to_numpy
+from repro_torch.sharding.context import full
 from repro_torch.train import (OptConfig, TrainConfig, init_train_state,
                                train_loop)
 from repro_torch.train.optimizer import tree_leaves
@@ -46,7 +49,9 @@ SERVE = ["--requests", "6", "--prompt-len", "10", "--max-new", "6",
 
 
 def _assert_bitwise(a_tree, b_tree):
-    a, b = tree_leaves(a_tree), tree_leaves(b_tree)
+    # the launcher's state is DTensors on its 1x1 mesh: their whole values
+    a = [full(x) for x in tree_leaves(a_tree)]
+    b = [full(y) for y in tree_leaves(b_tree)]
     assert len(a) == len(b)
     for x, y in zip(a, b):
         assert x.dtype == y.dtype and x.shape == y.shape
@@ -130,7 +135,7 @@ def test_train_line_and_no_kernel(tmp_path, capsys):
 
 
 def test_mesh_other_than_1x1_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="sharding/"):
+    with pytest.raises(ValueError, match="2 devices"):
         launch_train.main(ARGV + ["--mesh", "2x1", "--ckpt-dir",
                                   str(tmp_path)])
     assert os.listdir(tmp_path) == []
@@ -151,9 +156,10 @@ def test_serve_from_checkpoint_equals_reference_engine(trained):
     seed0 = launch_serve.main(ARGV + SERVE)
     params = got["engine"].params
     assert params["embed"].dtype == torch.float32
-    # the trained bfloat16 weights, served in float32
+    # the trained bfloat16 weights (a DTensor of the training mesh), served
+    # in float32 with no mesh
     assert torch.equal(params["embed"],
-                       res["state"]["params"]["embed"].float())
+                       full(res["state"]["params"]["embed"]).float())
 
     jcfg = jconfigs.get_config(ARCH).replace(dtype="float32")
     jmodel = jmodels.get_model(jcfg)

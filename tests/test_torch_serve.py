@@ -16,10 +16,12 @@
 * ``launch.serve.main(... --device cpu)`` returns its numbers, and its
   prefill went through the family's kernel wrapper once per layer (once per
   site of the shared block for hybrid) and wave.
-* The flags and entry points that are not ported raise
-  ``NotImplementedError`` naming the missing module, and launch nothing
+* The entry point that is not ported (``Runtime(moe_impl="ep")``) raises
+  ``NotImplementedError`` naming the missing module, and a ``--mesh`` of
+  more devices than ranks and ``shardings`` that are not (mesh,
+  placements) pairs raise naming what they need; none launches anything
   (every family is ported; ``test_torch_audio_vlm.py`` serves audio and
-  vlm).
+  vlm; meshes of several ranks serve in ``test_torch_elastic.py``).
 """
 import inspect
 
@@ -162,21 +164,22 @@ def _unported_calls(root=None):
     tokens = {"tokens": torch.zeros(1, 4, dtype=torch.long)}
     argv = ["--arch", "qwen3-14b-smoke", "--device", "cpu"]
     return {
-        "moe-ep": (lambda: Runtime(moe_impl="ep"), "moe_ep.py"),
+        "moe-ep": (lambda: Runtime(moe_impl="ep"), NotImplementedError,
+                   "moe_ep.py"),
+        # a 2x2 mesh needs 4 ranks (torchrun); this process is one
         "mesh": (lambda: launch_serve.main(argv + ["--mesh", "2x2"]),
-                 "sharding/"),
-        # --ckpt-dir is ported; restoring onto shardings is not
+                 ValueError, "4 devices"),
         "ckpt-dir": (lambda: Checkpointer(str(root)).restore(
             {"embed": torch.zeros(1)}, shardings={"embed": None}),
-                     "sharding/"),
+                     TypeError, "sharding.tree_shardings"),
     }
 
 
 @pytest.mark.parametrize("case", list(_unported_calls()))
 def test_unported_parts_raise_naming_the_module(case, tmp_path):
-    call, module = _unported_calls(tmp_path)[case]
+    call, error, module = _unported_calls(tmp_path)[case]
     ops.reset_launches()
-    with pytest.raises(NotImplementedError, match=module):
+    with pytest.raises(error, match=module):
         call()
     assert all(fn.launches == 0 for fn in ops.WRAPPERS + ops.LLM_WRAPPERS)
 
