@@ -223,10 +223,36 @@ to a plain version):
              local shards (the tensor-core kernel at d 128) and greedy
              tokens equal to the plain engine's on the same weights; 8d every full-size
              arch's specs on the production (16, 16) mesh under both rule
-             sets.
+             sets;
+9. ep      — expert parallelism (``models/moe_ep.py``) on the one-card
+             ``nccl`` mesh, where the expert axis is a group of one and
+             every all-to-all an exchange with itself: 9a qwen3-moe-30b-a3b
+             at full size in bf16, its parameters DTensors laid out by
+             ``SERVE_RULES`` (as ``launch.serve --mesh 1x1``), a prefill of
+             4 x 512 and 15 greedy decode steps through ``Model.prefill``
+             and ``decode_step`` with ``Runtime(moe_impl="ep")`` and with
+             ``Runtime()`` under ``activation_sharding``: at the config's
+             capacity factor the pairs each drops, finite logits, equal
+             greedy tokens on a rerun, wall, and over the prefill and
+             ``EP_PROFILE_STEPS`` decode steps the device busy time, idle
+             share and the collective kernels' device time (a profile of
+             all 15 steps collects ~1.3 x 10^5 device events, about half
+             a minute each), 48 ``mha`` launches of
+             the tensor-core kernel; then at the smallest factor of 2, 4, 8
+             where neither drops a pair, the EP logits within
+             ``EP_LOGIT_TOL`` of the sorted dispatch's; 9b the same config
+             at full width with its depth cut to ``EP_TRAIN["layers"]``
+             layers, 3 train steps of 8 x 64 uniform random tokens (state
+             DTensors by ``TRAIN_RULES``) with moe_impl "ep" and remat
+             "save_a2a", "ep" with "full" and the sorted dispatch with
+             "full", at the smallest factor where neither path drops a
+             pair in the first batch (none may drop in any step): the
+             first step's loss within ``EP_LOSS_TOL`` and its gradient
+             norm within ``EP_GRAD_NORM_TOL`` of the sorted dispatch's,
+             each variant's peak memory and warm step.
 
-The ``[smoke] all phases passed`` line gives the wall time of phases 1-8
-and of phases 7 and 8 alone.
+The ``[smoke] all phases passed`` line gives the wall time of phases 1-9
+and of phases 7, 8 and 9 alone.
 
 The last two lines of standard output are the kernels summary and the
 device line, each one JSON object.  Exits non-zero without them when there
@@ -3641,6 +3667,423 @@ def phase_mesh() -> dict:
     return numbers
 
 
+EP_ARCH = "qwen3-moe-30b-a3b"
+EP_SERVE = dict(batch=4, prompt_len=512, decode_steps=15, max_len=640)
+EP_FACTORS = (2.0, 4.0, 8.0)     # capacity factors tried for no drop
+EP_PROFILE_STEPS = 3             # decode steps in 9a's profiled window
+# EP against gspmd where neither drops a pair: the relative Frobenius
+# distance of the logits.  Both run the same expert GEMMs on the same rows
+# in the same order; only the buffers' capacity (their padding rows)
+# differs, which may change cuBLAS's kernel and so re-round each expert
+# output once in bf16 (2^-8 relative).  Re-roundings that differ, once a
+# layer over 48 layers and random in sign, add up to about 7 x 2^-8 x the
+# share of the residual stream the moe adds, under 2e-2 of the logits.
+EP_LOGIT_TOL = 2e-2
+EP_TRAIN = dict(layers=4, global_batch=8, seq_len=64, steps=3, lr=1e-3)
+EP_LOSS_TOL = 1e-3               # relative, the first step's loss
+# The first step's gradient norm, relative: the paths' bf16 gradients
+# differ in the order of their sums (the expert GEMMs' row counts differ).
+# The later steps' losses are printed, not held: AdamW's first updates are
+# about lr x sign(gradient), so a rounding that flips the sign of a tiny
+# gradient moves its parameter by 2 lr on one path and not the other.
+EP_GRAD_NORM_TOL = 1e-2
+
+
+def _ep_mesh():
+    """A one-card ``nccl`` mesh (1, 1) of ("data", "model"), as
+    ``launch.serve --mesh 1x1`` makes it."""
+    from repro_torch.launch.mesh import init_process_group, make_mesh
+
+    init_process_group("cuda", 1)
+    return make_mesh((1, 1), ("data", "model"), "cuda")
+
+
+def _ep_serve(model, params, tokens, rt, mesh, steps: int,
+              record: bool = False) -> dict:
+    """A greedy prefill of ``tokens`` and ``steps`` decode steps through
+    ``Model.prefill``/``decode_step`` with ``rt`` under
+    ``activation_sharding(mesh, SERVE_RULES)``: the logits (on the host,
+    float32), the greedy tokens, the wall, and with ``record`` the pairs
+    the moe FFNs dropped by capacity in the prefill and in the decode
+    steps (this rank's, summed over the layers)."""
+    import contextlib
+
+    from repro_torch.models.moe import recording_drops
+    from repro_torch.sharding import SERVE_RULES
+    from repro_torch.sharding.context import (activation_sharding, full,
+                                              replicate_like)
+
+    embed = params["embed"]
+    logits_all, picked = [], []
+    drops = {"prefill": [], "decode": []}
+    rec = recording_drops if record else contextlib.nullcontext
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad(), activation_sharding(mesh, SERVE_RULES):
+        with rec() as got:
+            logits, cache = model.prefill(
+                params, {"tokens": replicate_like(tokens, embed)},
+                EP_SERVE["max_len"], rt=rt)
+        if record:
+            drops["prefill"] = got
+        for _ in range(steps + 1):
+            logits = full(logits).float()
+            logits_all.append(logits)
+            nxt = torch.argmax(logits, dim=-1)
+            picked.append(nxt)
+            if len(picked) > steps:
+                break
+            with rec() as got:
+                logits, cache = model.decode_step(
+                    params, {"tokens": replicate_like(nxt[:, None], embed)},
+                    cache, rt=rt)
+            if record:
+                drops["decode"] += got
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = {"logits": torch.stack(logits_all).cpu(),
+           "tokens": torch.stack(picked, 1).cpu().numpy(), "wall": wall}
+    if record:
+        out["dropped"] = {part: int(sum(int(n) for n in ns))
+                          for part, ns in drops.items()}
+        out["pairs"] = {"prefill": tokens.numel() * model.cfg.moe_top_k
+                        * model.cfg.n_layers,
+                        "decode": tokens.shape[0] * model.cfg.moe_top_k
+                        * model.cfg.n_layers * steps}
+    return out
+
+
+def _ep_profile(run) -> dict | None:
+    """``run()`` under ``torch.profiler``, opened by ``lead_in`` and closed
+    by a marker: device busy s, and the device time and count of the
+    collective (``nccl``) kernels; None when the session is not whole.
+    The device's activity alone is recorded: the host's ~10^5 DTensor ops
+    a run would take the profiler minutes to collect."""
+    from torch.profiler import ProfilerActivity, profile
+
+    marker = _marker_name()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        lead_in()
+        run()
+        mark()
+        torch.cuda.synchronize()
+    parts = marked_parts(_device_events(prof), marker, 1)
+    if not parts or not parts[0]:
+        return None
+    events = parts[0]
+    nccl = [(name, us) for name, us in events if "nccl" in name.lower()]
+    return {"busy": sum(us for _, us in events) / 1e6,
+            "events": len(events),
+            "nccl_ms": sum(us for _, us in nccl) / 1e3,
+            "nccl_n": len(nccl),
+            "nccl_names": sorted({name[:60] for name, _ in nccl})}
+
+
+def _logit_distance(a: torch.Tensor, b: torch.Tensor) -> tuple:
+    """(relative Frobenius distance, largest |difference|) of two logit
+    tensors."""
+    return (float((a - b).norm() / b.norm()), float((a - b).abs().max()))
+
+
+def _ep_serve_phase(mesh) -> dict:
+    """9a: qwen3-moe-30b-a3b at full size on the one-card mesh, its
+    parameters laid out by SERVE_RULES, served with moe_impl="ep" against
+    the sorted dispatch."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import LAUNCHES as ATTN_LAUNCHES
+    from repro_torch.launch import serve
+    from repro_torch.models import Runtime, get_model
+    from repro_torch.sharding import SERVE_RULES, tree_shardings
+    from repro_torch.sharding.context import distribute
+
+    cfg = get_config(EP_ARCH)
+    model = get_model(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(seed=0, device="cuda")
+    params = distribute(params, tree_shardings(params, model.param_specs(),
+                                               SERVE_RULES, mesh))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    check(type(params["embed"]).__name__ == "DTensor",
+          f"9a: parameters are {type(params['embed']).__name__}")
+    tokens = torch.as_tensor(np.stack(serve.requests(
+        cfg, EP_SERVE["batch"], EP_SERVE["prompt_len"])), device="cuda")
+    steps = EP_SERVE["decode_steps"]
+    ep, plain = Runtime(moe_impl="ep"), Runtime()
+    print(f"[ep] 9a {cfg.name}: {cfg.n_layers} layers, {cfg.moe_experts} "
+          f"experts top {cfg.moe_top_k}, capacity factor "
+          f"{cfg.moe_capacity_factor}; {_numel(params) / 1e9:.3f} B "
+          f"parameters ({params['embed'].dtype}) as DTensors on the 1x1 "
+          f"{torch.distributed.get_backend()} mesh by "
+          f"SERVE_RULES in {init_s:.3f}s; prefill {EP_SERVE['batch']} x "
+          f"{EP_SERVE['prompt_len']}, {steps} decode steps")
+
+    ops.reset_launches()
+    runs = {"ep": _ep_serve(model, params, tokens, ep, mesh, steps, True)}
+    mha = ops.mha.launches
+    routes = dict(ATTN_LAUNCHES)
+    check(mha == cfg.n_layers
+          and routes == {"sm90": cfg.n_layers, "cuda_core": 0},
+          f"9a: moe_impl='ep' serve launched mha {mha}x ({routes}); "
+          f"expected {cfg.n_layers}, one a layer in the prefill")
+    runs["gspmd"] = _ep_serve(model, params, tokens, plain, mesh, steps,
+                              True)
+    for name, run in runs.items():
+        check(bool(torch.isfinite(run["logits"]).all()),
+              f"9a {name}: logits not finite")
+    rerun = {name: _ep_serve(model, params, tokens, rt, mesh, steps)
+             for name, rt in (("ep", ep), ("gspmd", plain))}
+    for name in runs:
+        check(np.array_equal(rerun[name]["tokens"], runs[name]["tokens"]),
+              f"9a {name}: a greedy rerun gave other tokens")
+    # the profiled window: the prefill and EP_PROFILE_STEPS decode steps,
+    # with the same window's unprofiled wall for the idle share
+    window = EP_PROFILE_STEPS
+    profiles = {}
+    t0 = time.perf_counter()
+    for name, rt in (("ep", ep), ("gspmd", plain)):
+        window_s = _ep_serve(model, params, tokens, rt, mesh, window)["wall"]
+        for attempt in range(1, PROFILER_SESSIONS + 1):
+            got = _ep_profile(lambda: _ep_serve(model, params, tokens, rt,
+                                                mesh, window))
+            if got is not None:
+                SESSIONS["whole"] += 1
+                break
+            SESSIONS["retaken"] += 1
+            print(f"[ep] 9a {name}: profiled session {attempt} not whole")
+        else:
+            raise SmokeFailure(f"9a {name}: no whole profiled serve")
+        profiles[name] = dict(got, wall=window_s)
+    print(f"[ep] 9a two profiled windows in {time.perf_counter() - t0:.1f}s")
+    same = float((runs["ep"]["tokens"] == runs["gspmd"]["tokens"]).mean())
+    for name in runs:
+        run, prof = runs[name], profiles[name]
+        wall = rerun[name]["wall"]
+        print(f"[ep] 9a {name} at capacity factor "
+              f"{cfg.moe_capacity_factor}: dropped {run['dropped']['prefill']}"
+              f" of {run['pairs']['prefill']} pairs in the prefill and "
+              f"{run['dropped']['decode']} of {run['pairs']['decode']} in "
+              f"the decode steps; logits finite; greedy tokens equal on a "
+              f"rerun; wall {wall:.3f}s (prefill + {steps} steps, warm; "
+              f"the first run {run['wall']:.3f}s); over the prefill and "
+              f"{window} steps: wall {prof['wall']:.3f}s, device busy "
+              f"{prof['busy']:.4f}s, idle share "
+              f"{1 - prof['busy'] / prof['wall']:.3f}, {prof['events']} "
+              f"device events, collective kernels {prof['nccl_n']}x "
+              f"{prof['nccl_ms']:.3f} ms {prof['nccl_names']}")
+    print(f"[ep] 9a greedy tokens of ep and gspmd agree at {same:.3f} of "
+          f"{runs['ep']['tokens'].size} positions (at the config's "
+          f"factor, where the two drop different pairs)")
+    del runs, rerun
+
+    held = None
+    for factor in EP_FACTORS:
+        model_f = get_model(cfg.replace(moe_capacity_factor=factor))
+        # a prefill and one decode step first, where a factor that drops
+        # shows it as a rule, then the whole run
+        for n in (1, steps):
+            got = {name: _ep_serve(model_f, params, tokens, rt, mesh, n,
+                                   True)
+                   for name, rt in (("ep", ep), ("gspmd", plain))}
+            dropped = {name: sum(run["dropped"].values())
+                       for name, run in got.items()}
+            print(f"[ep] 9a capacity factor {factor}, prefill and {n} "
+                  f"decode step(s): pairs dropped {dropped}")
+            if any(dropped.values()):
+                break
+        if any(dropped.values()):
+            continue
+        rel, err = _logit_distance(got["ep"]["logits"],
+                                   got["gspmd"]["logits"])
+        tok = float((got["ep"]["tokens"] == got["gspmd"]["tokens"]).mean())
+        print(f"[ep] 9a capacity factor {factor}, nothing dropped: ep "
+              f"logits against gspmd's over the prefill and {steps} steps "
+              f"(each on its own greedy tokens): relative distance "
+              f"{rel:.3e} (tolerance {EP_LOGIT_TOL}), largest |difference| "
+              f"{err:.4f} of largest |logit| "
+              f"{float(got['gspmd']['logits'].abs().max()):.3f}; greedy "
+              f"tokens equal at {tok:.3f}")
+        check(rel <= EP_LOGIT_TOL, f"9a: ep logits {rel:.3e} from gspmd's "
+                                   f"at capacity factor {factor}")
+        held = {"factor": factor, "rel": rel, "max_abs": err, "tokens": tok}
+        break
+    check(held is not None, f"9a: a pair dropped at every factor of "
+                            f"{EP_FACTORS}")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[ep] 9a peak memory {peak / 2**30:.2f} GiB")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"mha": mha, "profiles": profiles, "held": held, "peak": peak}
+
+
+def _ep_train_batch(data, step: int, like) -> dict:
+    from repro_torch.sharding.context import replicate_like
+
+    return {name: replicate_like(torch.from_numpy(x).cuda(), like)
+            for name, x in data.batch_at(step).items()}
+
+
+def _ep_train_factor(cfg, data, mesh) -> float:
+    """The smallest capacity factor of ``EP_FACTORS`` (then 16, 32) at
+    which neither moe path drops a pair in the first batch's
+    ``train_loss`` from the seed-0 parameters."""
+    from repro_torch.models import Runtime, get_model
+    from repro_torch.models.moe import recording_drops
+    from repro_torch.sharding import TRAIN_RULES, tree_shardings
+    from repro_torch.sharding.context import activation_sharding, distribute
+
+    model = get_model(cfg)
+    params = model.init(seed=0, device="cuda")
+    params = distribute(params, tree_shardings(params, model.param_specs(),
+                                               TRAIN_RULES, mesh))
+    batch = _ep_train_batch(data, 0, params["embed"])
+    chosen = None
+    for factor in (*EP_FACTORS, 16.0, 32.0):
+        model_f = get_model(cfg.replace(moe_capacity_factor=factor))
+        dropped = {}
+        for impl in ("ep", "gspmd"):
+            with torch.no_grad(), activation_sharding(mesh, TRAIN_RULES), \
+                    recording_drops() as drops:
+                model_f.train_loss(params, batch, Runtime(moe_impl=impl))
+            dropped[impl] = int(sum(int(n) for n in drops))
+        print(f"[ep] 9b capacity factor {factor}: pairs dropped in the first "
+              f"batch {dropped}")
+        if not any(dropped.values()):
+            chosen = factor
+            break
+    del params
+    check(chosen is not None, "9b: a pair dropped at every factor")
+    return chosen
+
+
+def _ep_train_phase(mesh) -> dict:
+    """9b: three training steps of qwen3-moe-30b-a3b at full width, its
+    depth cut to ``EP_TRAIN["layers"]``, on the one-card mesh (state laid
+    out by TRAIN_RULES, as ``launch.train`` does) on uniform random tokens
+    (``SyntheticLM``): moe_impl="ep" with remat="save_a2a" against
+    remat="full" and against gspmd, at a factor where nothing drops."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import Runtime, get_model
+    from repro_torch.models.moe import recording_drops
+    from repro_torch.sharding import TRAIN_RULES, tree_shardings
+    from repro_torch.sharding.context import activation_sharding, distribute
+    from repro_torch.train import (OptConfig, TrainConfig, init_train_state,
+                                   make_train_step)
+    from repro_torch.train.optimizer import opt_state_specs
+
+    run = EP_TRAIN
+    full_cfg = get_config(EP_ARCH)
+    cfg = full_cfg.replace(n_layers=run["layers"])
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=run["seq_len"],
+                                  global_batch=run["global_batch"]))
+    gc.collect()
+    torch.cuda.empty_cache()
+    factor = _ep_train_factor(cfg, data, mesh)
+    cfg = cfg.replace(moe_capacity_factor=factor)
+    model = get_model(cfg)
+    variants = (("ep save_a2a", Runtime(remat="save_a2a", moe_impl="ep")),
+                ("ep full", Runtime(remat="full", moe_impl="ep")),
+                ("gspmd full", Runtime(remat="full")))
+    print(f"[ep] 9b {cfg.name} at full width (d {cfg.d_model}, "
+          f"{cfg.moe_experts} experts of d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}), depth cut from {full_cfg.n_layers} to "
+          f"{cfg.n_layers} layers ({cfg.param_count() / 1e9:.3f} B "
+          f"parameters: bf16 with a float32 master and AdamW's moments, "
+          f"~16 bytes a parameter, so {full_cfg.n_layers} layers' "
+          f"{full_cfg.param_count() / 1e9:.1f} B do not fit 80 GB); "
+          f"batch {run['global_batch']} x {run['seq_len']} uniform random "
+          f"tokens, capacity factor {factor}")
+    out = {"factor": factor}
+    for label, rt in variants:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tc = TrainConfig(opt=OptConfig(lr=run["lr"], warmup_steps=2,
+                                       total_steps=run["steps"]),
+                         runtime=rt)
+        state = init_train_state(model, 0, tc, device="cuda")
+        pspecs = model.param_specs()
+        logical = {"params": pspecs, "opt": opt_state_specs(
+            pspecs, tc.opt, has_master="master" in state["opt"])}
+        state = distribute(state, tree_shardings(state, logical,
+                                                 TRAIN_RULES, mesh))
+        train_step = make_train_step(model, tc)
+        losses, norms, walls, dropped = [], [], [], 0
+        for step in range(run["steps"]):
+            batch = _ep_train_batch(data, step, state["opt"]["step"])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with activation_sharding(mesh, TRAIN_RULES), \
+                    recording_drops() as drops:
+                state, metrics = train_step(state, batch)
+                loss = float(metrics["loss"])
+            walls.append(time.perf_counter() - t0)
+            losses.append(loss)
+            norms.append(float(metrics["grad_norm"]))
+            dropped += int(sum(int(n) for n in drops))
+        peak = torch.cuda.max_memory_allocated()
+        warm = statistics.median(walls[1:])
+        print(f"[ep] 9b {label}: losses "
+              f"{', '.join(f'{x:.6f}' for x in losses)}; gradient norms "
+              f"{', '.join(f'{x:.6f}' for x in norms)}; pairs dropped "
+              f"{dropped}; peak memory {peak / 2**30:.2f} GiB; step walls "
+              f"{', '.join(f'{x:.4f}' for x in walls)}s (warm "
+              f"{warm:.4f}s)")
+        check(all(np.isfinite(losses)), f"9b {label}: losses {losses}")
+        check(dropped == 0, f"9b {label}: {dropped} pairs dropped at "
+                            f"capacity factor {factor}")
+        out[label] = {"losses": losses, "norms": norms, "peak": peak,
+                      "warm": warm}
+        del state, train_step, metrics
+    ref = out["gspmd full"]
+    for label in ("ep save_a2a", "ep full"):
+        got = out[label]
+        rel = abs(got["losses"][0] - ref["losses"][0]) / ref["losses"][0]
+        norm = abs(got["norms"][0] - ref["norms"][0]) / ref["norms"][0]
+        later = max(abs(a - b) / b for a, b in zip(got["losses"][1:],
+                                                   ref["losses"][1:]))
+        print(f"[ep] 9b {label} against gspmd full, first step from the "
+              f"same state: loss within {rel:.3e} relative (tolerance "
+              f"{EP_LOSS_TOL}), gradient norm within {norm:.3e} (tolerance "
+              f"{EP_GRAD_NORM_TOL}); later steps' losses (after updates "
+              f"that differ) within {later:.3e}")
+        check(rel <= EP_LOSS_TOL, f"9b {label}: first loss "
+                                  f"{got['losses'][0]} against "
+                                  f"{ref['losses'][0]}")
+        check(norm <= EP_GRAD_NORM_TOL, f"9b {label}: first gradient norm "
+                                        f"{got['norms'][0]} against "
+                                        f"{ref['norms'][0]}")
+        got["rel"] = rel
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_ep() -> dict:
+    """Phase 9: expert parallelism (``models/moe_ep.py``) on the one-card
+    mesh: qwen3-moe-30b-a3b served at full size and trained at full width
+    through moe_impl="ep" against the sorted dispatch."""
+    t0 = time.perf_counter()
+    print("[ep] one card: the expert axis is a group of one, so each "
+          "all-to-all exchanges with itself; more ranks run only on the "
+          "CPU (gloo, tests/test_torch_moe_ep.py)")
+    mesh = _ep_mesh()
+    numbers = _ep_serve_phase(mesh)
+    serve_s = time.perf_counter() - t0
+    numbers["train"] = _ep_train_phase(mesh)
+    numbers["phase_s"] = time.perf_counter() - t0
+    print(f"[ep] phase 9 in {numbers['phase_s']:.1f}s (9a {serve_s:.1f}s, "
+          f"9b {numbers['phase_s'] - serve_s:.1f}s)")
+    return numbers
+
+
 # --------------------------------------------------------------------------
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3667,10 +4110,11 @@ def main() -> int:
     phase_train()
     ckpt = phase_checkpoint()
     mesh = phase_mesh()
+    ep = phase_ep()
     print(f"[smoke] all phases passed in {time.perf_counter() - t0:.1f}s "
           f"(phase 7 {ckpt['phase_s']:.1f}s, phase 8 "
-          f"{mesh['phase_s']:.1f}s); device_ms profiler sessions "
-          f"{SESSIONS}")
+          f"{mesh['phase_s']:.1f}s, phase 9 {ep['phase_s']:.1f}s); "
+          f"device_ms profiler sessions {SESSIONS}")
 
     replaces = {
         "pchase_batch": "src/repro/kernels/pchase_probe.py:81",
@@ -3695,7 +4139,9 @@ def main() -> int:
     paths = {**{name: None for name in ATTN_ROWS.values()},
              "mha": "serve qwen3-14b, qwen3-moe-30b-a3b; internlm2-1.8b "
                     "from its checkpoint (phase 7) and on a 1x1 "
-                    "DeviceMesh (phase 8)",
+                    "DeviceMesh (phase 8); qwen3-moe-30b-a3b through "
+                    "moe_impl='ep' (models/moe_ep.py) on a 1x1 "
+                    "DeviceMesh (phase 9)",
              "mha_d80": "serve zamba2-2.7b", "wkv6": "serve rwkv6-3b",
              "mha_d64": "serve musicgen-large",
              "mha_d256": "serve paligemma-3b (prefix-LM, P 256)",
@@ -3729,6 +4175,9 @@ def main() -> int:
             # the launches of the serve on the one-card mesh (phase 8c),
             # read around that run alone
             **({"mesh_launches": mesh["mha"]} if name == "mha" else {}),
+            # the launches of the expert-parallel serve (phase 9a), read
+            # around its first run alone
+            **({"ep_launches": ep["mha"]} if name == "mha" else {}),
             **{key: row[key] for key in (
                 "device_ms", "library_device_ms", "bound_level",
                 "per_load_ns", "per_load_cycles",

@@ -40,12 +40,24 @@ class SampleCache:
                 return self._store[key]
         # Run outside the lock so independent probes proceed concurrently.
         # Two threads may race on the same key; keyed sampling makes their
-        # results identical, so last-write-wins is safe.
+        # results identical, and the later one counts as the hit it would
+        # have been in an inline run (``_probed``).
         value = fn()
         with self._lock:
-            self.misses += 1
-            self._store[key] = value
+            self._probed([key], [value])
         return value
+
+    def _probed(self, keys: list, values) -> None:
+        """Store rows just probed (``keys`` distinct; the lock held).  A
+        key another thread stored since this one looked (both probed it)
+        counts as a hit, not a miss, so the counters are those of an
+        inline run whatever the thread order."""
+        for key, value in zip(keys, values):
+            if key in self._store:
+                self.hits += 1
+            else:
+                self.misses += 1
+                self._store[key] = value
 
     def peek(self, key: tuple) -> np.ndarray | None:
         with self._lock:
@@ -136,15 +148,27 @@ class CachingRunner:
         if missing:
             fetched = np.asarray(self.base.pchase_batch(
                 space, [sizes[i] for i in missing], stride, n_samples))
-            with self.cache._lock:
-                for j, i in enumerate(missing):
-                    self.cache.misses += 1
-                    self.cache._store[keys[i]] = fetched[j]
-                    rows[i] = fetched[j]
+            self._store_fetched(keys, missing, fetched, rows)
         if len(missing) < len(rows):
             with self.cache._lock:
                 self.cache.hits += len(rows) - len(missing)
         return np.stack(rows)
+
+    def _store_fetched(self, keys, missing, fetched, rows) -> None:
+        """Store the rows fetched for ``missing`` positions (a key may
+        repeat within a batch: each repeat was fetched and counts as a
+        miss, as in the reference), into ``rows`` too; a key that another
+        thread stored meanwhile counts as a hit (``SampleCache._probed``)."""
+        cache = self.cache
+        with cache._lock:
+            raced = {keys[i] for i in missing if keys[i] in cache._store}
+            for j, i in enumerate(missing):
+                rows[i] = fetched[j]
+                if keys[i] in raced:
+                    cache.hits += 1
+                else:
+                    cache.misses += 1
+                    cache._store[keys[i]] = fetched[j]
 
     def pchase_many(self, requests, n_samples, fresh: bool = False):
         """Heterogeneous fused batch (per-row space/size/stride): cached rows
@@ -210,11 +234,10 @@ class CachingRunner:
             else:
                 fetched = np.stack([single(r) for r in uniq_reqs])
             with self.cache._lock:
-                for j, key in enumerate(uniq):
-                    self.cache.misses += 1
-                    self.cache._store[key] = fetched[j]
-                    for i in missing_keys[key]:
-                        rows[i] = fetched[j]
+                self.cache._probed(uniq, fetched)
+            for j, key in enumerate(uniq):
+                for i in missing_keys[key]:
+                    rows[i] = fetched[j]
         served = len(rows) - sum(len(v) for v in missing_keys.values())
         if served:
             with self.cache._lock:
@@ -247,11 +270,7 @@ class CachingRunner:
                 fetched = np.stack([self.base.cold_chase(
                     space, sizes[i], strides[i], n_samples)
                     for i in missing])
-            with self.cache._lock:
-                for j, i in enumerate(missing):
-                    self.cache.misses += 1
-                    self.cache._store[keys[i]] = fetched[j]
-                    rows[i] = fetched[j]
+            self._store_fetched(keys, missing, fetched, rows)
         if len(missing) < len(rows):
             with self.cache._lock:
                 self.cache.hits += len(rows) - len(missing)

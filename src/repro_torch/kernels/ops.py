@@ -12,15 +12,14 @@ training takes the reference's plain path instead.  ``mha`` and ``wkv6``
 also take DTensors (a model served on a mesh): the kernel runs on each
 rank's local shards where only the batch and head dimensions are sharded,
 and the inputs are redistributed to that layout first otherwise
-(``_on_shards``); the call counts once.  ``WRAPPERS`` are the four probe
-wrappers discovery runs; ``LLM_WRAPPERS`` are the model kernels' (``mha``,
-``wkv6``) and the single-chain chase (``pchase``), which no discovery path
-calls.
+(``sharding.context.on_local_shards``); the call counts once.
+``WRAPPERS`` are the four probe wrappers discovery runs;
+``LLM_WRAPPERS`` are the model kernels' (``mha``, ``wkv6``) and the
+single-chain chase (``pchase``), which no discovery path calls.
 """
 from __future__ import annotations
 
 import functools
-import math
 
 import torch
 import torch.nn.functional as F
@@ -35,7 +34,7 @@ from .rwkv6_scan import (CHUNK, HEAD_SIZES, head_size, pad_wkv, wkv6_kernel,
                          wkv6_plain)
 from .stream_probe import (stream_read_kernel, stream_read_plain,
                            stream_write_kernel, stream_write_plain)
-from ..sharding.context import is_sharded, replicate_like
+from ..sharding.context import is_sharded, on_local_shards
 
 __all__ = ["pchase_batch", "eviction_batch", "stream_read", "stream_write",
            "mha", "wkv6", "pchase", "WRAPPERS", "LLM_WRAPPERS",
@@ -86,62 +85,13 @@ def _refuse_grad(name: str, *tensors: torch.Tensor) -> None:
             f"models.rwkv6.wkv_chunked)")
 
 
-def _on_shards(fn, inputs: list, dims: list, out_dims: list):
-    """``fn`` over DTensor (or plain) ``inputs`` on each rank's local
-    shards -> its outputs as DTensors on the inputs' mesh.
-
-    ``dims[i]`` is (batch dim, head dim) of input i, each None where it has
-    none; ``out_dims`` the same of each output.  A mesh dimension along
-    which the first input is sharded on its batch (or head) dimension
-    shards every input on its batch (head) dimension, provided each such
-    dimension divides evenly by all the mesh dimensions that take it; every
-    other mesh dimension is replicated.  Heads split evenly alike keep a
-    grouped-query mapping local: query head h of a shard reads kv head
-    h // G of the same shard.  Where the kv heads cannot split as the
-    query heads do (8 query heads to 1 kv head on 2 ranks), the heads are
-    replicated, never paired across shards.  Plain inputs count as
-    replicated."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
-
-    lead = next(t for t in inputs if is_sharded(t))
-    mesh = lead.device_mesh
-    inputs = [t if is_sharded(t) else replicate_like(t, lead)
-              for t in inputs]
-    first_batch, first_head = dims[0]
-    kinds = []
-    for placement in inputs[0].placements:
-        if placement.is_shard(first_batch):
-            kinds.append(0)
-        elif first_head is not None and placement.is_shard(first_head):
-            kinds.append(1)
-        else:
-            kinds.append(None)
-    for kind in (0, 1):
-        n = math.prod(mesh.size(j) for j, k in enumerate(kinds) if k == kind)
-        if any(d[kind] is not None and t.shape[d[kind]] % n
-               for t, d in zip(inputs, dims)):
-            kinds = [None if k == kind else k for k in kinds]
-
-    def layout(d):
-        return tuple(Shard(d[k]) if k is not None and d[k] is not None
-                     else Replicate() for k in kinds)
-
-    local = []
-    for t, d in zip(inputs, dims):
-        if tuple(t.placements) != layout(d):
-            t = t.redistribute(mesh, layout(d))
-        local.append(t.to_local().contiguous())
-    outs = fn(*local)
-    single = not isinstance(outs, tuple)
-    wrapped = tuple(DTensor.from_local(o, mesh, layout(d), run_check=False)
-                    for o, d in zip((outs,) if single else outs, out_dims))
-    return wrapped[0] if single else wrapped
-
-
-def _route(device: torch.device, kernel, plain):
+def _route(device: torch.device, kernel, plain, meta: bool = False):
+    """The kernel on the card; the plain version on the CPU and, where
+    ``meta`` (the model kernels, whose shapes the dry run traces:
+    ``launch/dryrun.py``), on the ``meta`` device."""
     if device.type == "cuda":
         return kernel
-    if device.type == "cpu":
+    if device.type == "cpu" or (meta and device.type == "meta"):
         return plain
     raise ValueError(f"no kernel for device type {device.type!r}")
 
@@ -233,12 +183,13 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     result is exact.  A ragged non-causal call would attend to the padding,
     so it raises.
 
-    DTensor inputs run on their local shards (``_on_shards``): batch and
-    heads as they are sharded, where the heads of q, k and v split alike,
-    and everything else replicated first.
+    DTensor inputs run on their local shards
+    (``sharding.context.on_local_shards``): batch and heads as they are
+    sharded, where the heads of q, k and v split alike, and everything
+    else replicated first.
     """
     if any(is_sharded(t) for t in (q, k, v)):
-        return _on_shards(
+        return on_local_shards(
             functools.partial(_mha, causal=causal, prefix_len=prefix_len),
             [q, k, v], [(0, 2)] * 3, [(0, 2)])
     return _mha(q, k, v, causal=causal, prefix_len=prefix_len)
@@ -279,7 +230,8 @@ def _mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             f"(flash_fwd_sm90_wide_kernel in {SOURCES['sm90']}, "
             f"flash_fwd_wide_kernel in {SOURCES['cuda_core']}) take no "
             f"prefix; up to {MAX_HEAD_DIM} they take causal and full only")
-    fn = _route(dev, flash_attention_kernel, flash_attention_plain)
+    fn = _route(dev, flash_attention_kernel, flash_attention_plain,
+                meta=True)
     if not ragged:
         return fn(q, k, v, causal, prefix)
     pq, pk = -(-sq // BLOCK) * BLOCK, -(-sk // BLOCK) * BLOCK
@@ -312,14 +264,14 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     it, the same way.  There is no incoming state: the kernel starts from
     zero, as prefill does.
 
-    DTensor inputs run on their local shards (``_on_shards``): batch and
-    heads as they are sharded (u's heads with them), everything else
-    replicated first.
+    DTensor inputs run on their local shards
+    (``sharding.context.on_local_shards``): batch and heads as they are
+    sharded (u's heads with them), everything else replicated first.
     """
     if any(is_sharded(t) for t in (r, k, v, w, u)):
-        return _on_shards(functools.partial(_wkv6, chunk=chunk),
-                          [r, k, v, w, u], [(0, 2)] * 4 + [(None, 0)],
-                          [(0, 2), (0, 1)])
+        return on_local_shards(functools.partial(_wkv6, chunk=chunk),
+                               [r, k, v, w, u], [(0, 2)] * 4 + [(None, 0)],
+                               [(0, 2), (0, 1)])
     return _wkv6(r, k, v, w, u, chunk=chunk)
 
 
@@ -365,7 +317,7 @@ def _wkv6_slice(r, k, v, w, u,
     b, t, h, kd = r.shape
     vd = v.shape[-1]
     size = head_size(kd, vd)
-    fn = _route(r.device, wkv6_kernel, wkv6_plain)
+    fn = _route(r.device, wkv6_kernel, wkv6_plain, meta=True)
     if fn is wkv6_plain:
         tp = -(-t // chunk) * chunk
         y, state = fn(_pad_seq(r, tp), _pad_seq(k, tp), _pad_seq(v, tp),

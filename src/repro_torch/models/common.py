@@ -9,12 +9,15 @@ to the other only through ``models.convert``.
 """
 from __future__ import annotations
 
+import contextvars
 import functools
 import math
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from ..sharding.context import is_sharded, on_local_shards
 
 __all__ = ["Initializer", "ShapeInitializer", "AxesInitializer", "rms_norm",
            "rope_angles", "apply_rope", "attention", "swiglu",
@@ -132,8 +135,15 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (Tq, Tk).  Training's forward runs this, as the reference's does; the
     serving path's prefill goes through the flash kernel instead
     (``kernels.ops.mha``, which takes the same ``prefix_len`` and refuses
-    inputs that require grad).
+    inputs that require grad).  DTensors run on each rank's shards of
+    batch and heads (``on_local_shards``): DTensor has no rule for the
+    grouped einsum's reshapes of a tensor split over both at once.
     """
+    if is_sharded(q):
+        return on_local_shards(functools.partial(
+            attention, causal=causal, q_offset=q_offset,
+            prefix_len=prefix_len, q_chunk=q_chunk),
+            [q, k, v], [(0, 2)] * 3, [(0, 2)])
     b, tq, hq, hd = q.shape
     tk, hkv = k.shape[1], k.shape[2]
     qg = q.reshape(b, tq, hkv, hq // hkv, hd)
@@ -165,14 +175,25 @@ def swiglu(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
     return (F.silu(x @ w1) * (x @ w3)) @ w2
 
 
-def remat_layer(fn, remat: bool):
+def remat_layer(fn, remat: bool, context_fn=None):
     """``fn`` as it is, or, when ``remat``, ``fn`` whose activations are
     recomputed in the backward pass instead of kept (non-reentrant
     activation checkpointing: gradients reach every tensor ``fn`` reads,
-    its arguments' nested dictionaries included)."""
+    its arguments' nested dictionaries included); ``context_fn`` makes it
+    selective (``torch.utils.checkpoint.checkpoint``'s argument).  The
+    recompute runs in the context variables of the forward call
+    (``sharding.context``'s mesh among them): on the card the autograd
+    engine runs the backward on a thread of its own, where they are
+    unset."""
     if not remat:
         return fn
-    return functools.partial(checkpoint, fn, use_reentrant=False)
+    kw = {} if context_fn is None else {"context_fn": context_fn}
+
+    def layer(*args):
+        run = functools.partial(contextvars.copy_context().run, fn)
+        return checkpoint(run, *args, use_reentrant=False, **kw)
+
+    return layer
 
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,

@@ -66,11 +66,12 @@ class Model:
     def forward(self, params, batch, rt: Runtime = Runtime()):
         return self.backend.forward(self.cfg, params, batch, rt)
 
-    def prefill(self, params, batch, max_len: int):
-        return self.backend.prefill(self.cfg, params, batch, max_len)
+    def prefill(self, params, batch, max_len: int, rt: Runtime = Runtime()):
+        return self.backend.prefill(self.cfg, params, batch, max_len, rt=rt)
 
-    def decode_step(self, params, batch, cache):
-        return self.backend.decode_step(self.cfg, params, batch, cache)
+    def decode_step(self, params, batch, cache, rt: Runtime = Runtime()):
+        return self.backend.decode_step(self.cfg, params, batch, cache,
+                                        rt=rt)
 
     def init_cache(self, batch_size: int, max_len: int,
                    device: str = "cuda") -> dict:

@@ -28,6 +28,8 @@ buffer as a DTensor against the expert weights' own placements
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import NamedTuple
 
 import torch
@@ -37,7 +39,33 @@ from ..sharding.context import constrain, is_sharded
 from .common import Initializer
 
 __all__ = ["init_moe", "moe_ffn", "load_balance_loss", "capacity", "route",
-           "dispatch", "experts", "combine", "Routing"]
+           "dispatch", "experts", "combine", "Routing", "recording_drops",
+           "record_drops"]
+
+_DROPS: contextvars.ContextVar = contextvars.ContextVar("moe_drops",
+                                                        default=None)
+
+
+@contextlib.contextmanager
+def recording_drops():
+    """Yields a list that collects, for every moe FFN call run inside
+    (``moe_ffn`` and ``moe_ep.moe_ffn_ep``), the (token, expert) pairs
+    this rank's call dropped by capacity: 0-d int64 tensors on the device
+    (nothing waits for them)."""
+    drops = []
+    token = _DROPS.set(drops)
+    try:
+        yield drops
+    finally:
+        _DROPS.reset(token)
+
+
+def record_drops(count) -> None:
+    """Adds a call's dropped pairs, ``count()``, to the list of
+    ``recording_drops``; outside it ``count`` is not called."""
+    drops = _DROPS.get()
+    if drops is not None:
+        drops.append(count().detach())
 
 
 def init_moe(ini: Initializer, cfg) -> dict:
@@ -132,6 +160,7 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg) -> tuple[torch.Tensor,
         y, probs = _moe_ffn_on_mesh(p, xt, cfg)
         return y.reshape(bsz, seq, d), probs
     r = route(p, xt, cfg)
+    record_drops(lambda: (~r.keep).sum())
     y = combine(r, experts(p, dispatch(r, xt, cfg)), cfg)
     return y.reshape(bsz, seq, d), r.probs
 
@@ -148,6 +177,7 @@ def _moe_ffn_on_mesh(p: dict, xt, cfg):
     tokens = xt.redistribute(mesh, whole).to_local()
     router = p["router"].redistribute(mesh, whole).to_local()
     r = route({"router": router}, tokens, cfg)
+    record_drops(lambda: (~r.keep).sum())
     buf = DTensor.from_local(dispatch(r, tokens, cfg), mesh, whole)
     buf = constrain(buf, ("experts", "moe_cap", "embed_act"))
     out = experts(p, buf).redistribute(mesh, whole).to_local()
@@ -157,9 +187,11 @@ def _moe_ffn_on_mesh(p: dict, xt, cfg):
 
 
 def load_balance_loss(probs: torch.Tensor, top_e, cfg) -> torch.Tensor:
-    """Switch-style auxiliary loss: E * sum_e f_e * P_e (f from argmax)."""
+    """Switch-style auxiliary loss: E * sum_e f_e * P_e (f from argmax),
+    over every token of ``probs`` (..., E)."""
     del top_e
     e = cfg.moe_experts
-    p_mean = probs.mean(dim=0)                                    # (E,)
-    hard = F.one_hot(torch.argmax(probs, dim=-1), e).float().mean(dim=0)
+    tokens = tuple(range(probs.dim() - 1))
+    p_mean = probs.mean(dim=tokens)                               # (E,)
+    hard = F.one_hot(torch.argmax(probs, dim=-1), e).float().mean(dim=tokens)
     return e * torch.sum(hard * p_mean)

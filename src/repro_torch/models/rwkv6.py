@@ -212,8 +212,9 @@ def cache_specs(cfg) -> dict:
     }
 
 
-def prefill(cfg, params, batch, max_len: int):
-    """Run the prompt from a zero state; return (last-token logits, cache)."""
+def prefill(cfg, params, batch, max_len: int, rt=None):
+    """Run the prompt from a zero state; return (last-token logits,
+    cache).  ``rt`` is unused, as in the reference."""
     x = params["embed"][batch["tokens"]]
     states, att_shift, ffn_shift = [], [], []
     for p in params["layers"]:
@@ -227,9 +228,9 @@ def prefill(cfg, params, batch, max_len: int):
     return x[:, -1] @ params["head"], cache
 
 
-def decode_step(cfg, params, batch, cache):
-    """One-token step.  Updates ``cache`` in place and returns
-    (logits, cache)."""
+def decode_step(cfg, params, batch, cache, rt=None):
+    """One-token step (``rt`` unused, as in the reference).  Updates
+    ``cache`` in place and returns (logits, cache)."""
     x = params["embed"][batch["tokens"]][:, 0]      # (B, d)
     for layer, p in enumerate(params["layers"]):
         scan = functools.partial(_scan_from, cache["wkv"][layer])

@@ -19,6 +19,10 @@ Activations are pinned by ``sharding.constrain`` at the reference's places
   the plain ``common.attention`` (query-chunked past ``Runtime.q_chunk``),
   never a kernel: the kernels have no backward and refuse inputs that
   require grad.  ``Runtime.remat`` recomputes each layer in the backward.
+* Every entry point takes a ``Runtime``, as the reference's: with
+  ``moe_impl="ep"`` under a mesh (``sharding.context.current_mesh()``)
+  the moe FFN is expert-parallel (``models.moe_ep``), else the sorted
+  dispatch (``models.moe``).
 
 Batches take the reference's layouts (``Model.input_specs``): ``tokens``
 (B, T) for dense, moe and vlm, (B, K, T) for audio, and for vlm also
@@ -35,11 +39,13 @@ from dataclasses import dataclass
 import torch
 
 from ..kernels import ops
-from ..sharding.context import constrain, replicate_like
+from ..sharding.context import (constrain, current_mesh, is_sharded,
+                                on_local_shards, replicate_like)
 from .common import (DTYPES, Initializer, apply_rope, attention,
                      cross_entropy, remat_layer, rms_norm, rope_angles,
                      swiglu)
 from .moe import init_moe, load_balance_loss, moe_ffn
+from .moe_ep import moe_ffn_ep, save_a2a_contexts
 
 __all__ = ["Runtime", "init", "forward", "train_loss", "prefill",
            "decode_step", "init_cache", "cache_specs"]
@@ -47,16 +53,19 @@ __all__ = ["Runtime", "init", "forward", "train_loss", "prefill",
 
 @dataclass(frozen=True)
 class Runtime:
-    """Execution knobs of training (``forward``, ``train_loss``); serving
-    takes none.
+    """Execution knobs of the entry points.
 
-    ``q_chunk``: attention takes the queries a chunk at a time once
-    T >= 2 * q_chunk (0: never).  ``remat``: ``"none"`` keeps every layer's
-    activations for the backward pass; any other value recomputes each
-    layer there (``"save_a2a"`` keeps the outputs of the expert-parallel
-    moe's all-to-all in the reference, which the port does not have yet, so
-    it is full remat here).  ``moe_impl="ep"`` (expert parallelism over a
-    mesh, ``models/moe_ep.py``) is refused until that module is ported."""
+    ``q_chunk``: training's attention takes the queries a chunk at a time
+    once T >= 2 * q_chunk (0: never).  ``remat``: ``"none"`` keeps every
+    layer's activations for the backward pass; ``"full"`` recomputes each
+    layer there; ``"save_a2a"`` recomputes each layer but keeps the
+    outputs of the expert-parallel moe's forward all-to-alls
+    (``moe_ep.save_a2a_contexts``), so the backward exchanges only the
+    gradients.  ``moe_impl``: ``"gspmd"`` is the sorted dispatch
+    (``models/moe.py``); ``"ep"`` is expert parallelism with explicit
+    all-to-alls (``models/moe_ep.py``) under a mesh
+    (``sharding.context.current_mesh()``), and the sorted dispatch with
+    none, as in the reference."""
 
     q_chunk: int = 1024          # query-chunked attention threshold
     remat: str = "none"          # none | full | save_a2a
@@ -64,11 +73,12 @@ class Runtime:
     moe_impl: str = "gspmd"      # gspmd (sorted dispatch) | ep
 
     def __post_init__(self):
-        if self.moe_impl == "ep":
-            raise NotImplementedError(
-                "moe_impl='ep': models/moe_ep.py (expert parallelism over a "
-                "mesh) is not ported yet (ROADMAP.md, queue A item 6); use "
-                "moe_impl='gspmd', the sorted dispatch, on any mesh")
+        if self.moe_impl not in ("gspmd", "ep"):
+            raise ValueError(f"moe_impl={self.moe_impl!r}: expected 'gspmd' "
+                             f"(models/moe.py) or 'ep' (models/moe_ep.py)")
+        if self.remat not in ("none", "full", "save_a2a"):
+            raise ValueError(f"remat={self.remat!r}: expected 'none', "
+                             f"'full' or 'save_a2a'")
 
 
 # ------------------------------------------------------------------- init
@@ -139,17 +149,22 @@ def _out_proj(p, out, x):
             ).to(x.dtype)
 
 
-def _ffn(cfg, p, x):
+def _ffn(cfg, p, x, rt: Runtime):
     """x plus the FFN of its norm -> (out, the moe router's probabilities
-    (T, E), or None for a SwiGLU FFN)."""
+    (T, E), or None for a SwiGLU FFN); the moe FFN is expert-parallel
+    under a mesh when ``rt.moe_impl`` is ``"ep"``."""
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     if cfg.family == "moe":
-        y, probs = moe_ffn(p["moe"], h, cfg)
+        mesh = current_mesh()
+        if rt.moe_impl == "ep" and mesh is not None:
+            y, probs = moe_ffn_ep(p["moe"], h, cfg, mesh)
+        else:
+            y, probs = moe_ffn(p["moe"], h, cfg)
         return x + y, probs
     return x + swiglu(h, p["w1"], p["w3"], p["w2"]), None
 
 
-def block(cfg, p, x, attend):
+def block(cfg, p, x, attend, rt: Runtime = Runtime()):
     """One layer over a whole sequence from position 0; ``attend(q, k, v)``
     is its attention: the kernel's wrapper when serving, the plain
     evaluator when training.  Returns (out, router probabilities or None,
@@ -157,7 +172,7 @@ def block(cfg, p, x, attend):
     x = constrain(x, ("batch", "seq", "embed_act"))
     pos = torch.arange(x.shape[1], device=x.device)
     q, k, v = _qkv(cfg, p, x, pos)
-    out, probs = _ffn(cfg, p, x + _out_proj(p, attend(q, k, v), x))
+    out, probs = _ffn(cfg, p, x + _out_proj(p, attend(q, k, v), x), rt)
     return constrain(out, ("batch", "seq", "embed_act")), probs, k, v
 
 
@@ -174,24 +189,36 @@ def kernel_attend(prefix_len: int = 0):
     return functools.partial(ops.mha, causal=True, prefix_len=prefix_len)
 
 
-def block_decode(cfg, p, x, ck, cv, cur_len: int):
+def decode_attend(q, ck, cv, cur_len: int):
+    """A step's queries q (B, Tq, Hq, hd) over the cache's first
+    ``cur_len + Tq`` positions (B, Smax, Hkv, hd), causal, in the cache's
+    dtype; DTensors on each rank's shards of batch and heads."""
+    if is_sharded(q):
+        return on_local_shards(functools.partial(decode_attend,
+                                                 cur_len=cur_len),
+                               [q, ck, cv], [(0, 2)] * 3, [(0, 2)])
+    bsz, tq, hq, hd = q.shape
+    hkv = ck.shape[2]
+    qg = q.reshape(bsz, tq, hkv, hq // hkv, hd)
+    scores = torch.einsum("btkgh,bskh->bkgts", qg, ck).float()
+    scores = scores / math.sqrt(hd)
+    valid = torch.arange(ck.shape[1], device=q.device) <= cur_len
+    scores = scores.masked_fill(~valid, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(cv.dtype)
+    out = torch.einsum("bkgts,bskh->btkgh", probs, cv)
+    return out.reshape(bsz, tq, hq, hd)
+
+
+def block_decode(cfg, p, x, ck, cv, cur_len: int, rt: Runtime = Runtime()):
     """One layer, one token; writes its k and v into the cache in place."""
     x = constrain(x, ("batch", "seq", "embed_act"))
-    bsz, tq, _ = x.shape
-    hd, hq, hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    tq = x.shape[1]
     pos = torch.arange(cur_len, cur_len + tq, device=x.device)
     q, k, v = _qkv(cfg, p, x, pos)
     ck[:, cur_len:cur_len + tq] = k.to(ck.dtype)
     cv[:, cur_len:cur_len + tq] = v.to(cv.dtype)
-    qg = q.reshape(bsz, tq, hkv, hq // hkv, hd)
-    scores = torch.einsum("btkgh,bskh->bkgts", qg, ck).float()
-    scores = scores / math.sqrt(hd)
-    valid = torch.arange(ck.shape[1], device=x.device) <= cur_len
-    scores = scores.masked_fill(~valid, -1e30)
-    probs = torch.softmax(scores, dim=-1).to(cv.dtype)
-    out = torch.einsum("bkgts,bskh->btkgh", probs, cv)
-    out = out.reshape(bsz, tq, hq, hd).to(x.dtype)
-    return constrain(_ffn(cfg, p, x + _out_proj(p, out, x))[0],
+    out = decode_attend(q, ck, cv, cur_len).to(x.dtype)
+    return constrain(_ffn(cfg, p, x + _out_proj(p, out, x), rt)[0],
                      ("batch", "seq", "embed_act"))
 
 
@@ -242,11 +269,13 @@ def _logits(cfg, params, x):
 # -------------------------------------------------------------- entry pts
 def _run_layers(cfg, layers, x, prefix_len: int, rt: Runtime):
     """Every layer over the sequence, each recomputed in the backward pass
-    unless ``rt.remat`` is ``"none"``; returns (x, router probabilities
-    stacked (L, T, E) for moe, else zeros (L, 1, 1) as the reference's)."""
+    unless ``rt.remat`` is ``"none"`` (``"save_a2a"`` keeps the moe's
+    exchanged activations); returns (x, router probabilities stacked
+    (L, T, E) for moe, else zeros (L, 1, 1) as the reference's)."""
     layer = remat_layer(functools.partial(
-        block, cfg, attend=plain_attend(prefix_len, rt.q_chunk)),
-        rt.remat != "none")
+        block, cfg, attend=plain_attend(prefix_len, rt.q_chunk), rt=rt),
+        rt.remat != "none",
+        save_a2a_contexts if rt.remat == "save_a2a" else None)
     probs = []
     for p in layers:
         x, pr = layer(p, x)[:2]
@@ -277,8 +306,9 @@ def train_loss(cfg, params, batch, rt: Runtime = Runtime()):
     else:
         loss = cross_entropy(logits, batch["targets"])
     if cfg.family == "moe":
-        aux = load_balance_loss(probs.reshape(-1, probs.shape[-1]), None,
-                                cfg)
+        # over (L, T, E) as it is: the reference flattens it first, which
+        # a DTensor split over tokens cannot take (a strided shard)
+        aux = load_balance_loss(probs, None, cfg)
         loss = loss + rt.moe_aux_weight * aux
     return loss
 
@@ -299,7 +329,7 @@ def cache_specs(cfg) -> dict:
     return {"k": kv, "v": kv, "len": ()}
 
 
-def prefill(cfg, params, batch, max_len: int):
+def prefill(cfg, params, batch, max_len: int, rt: Runtime = Runtime()):
     """Run the prompt, fill a KV cache, return (last-token logits, cache):
     logits (B, V), or (B, K, V) for audio; vlm's cache holds its patches'
     positions ahead of the text's."""
@@ -313,7 +343,7 @@ def prefill(cfg, params, batch, max_len: int):
                                    device=x.device), x)
     attend = kernel_attend(prefix_len)
     for layer, p in enumerate(params["layers"]):
-        x, _, k, v = block(cfg, p, x, attend)
+        x, _, k, v = block(cfg, p, x, attend, rt)
         cache["k"][layer, :, :seq] = k
         cache["v"][layer, :, :seq] = v
     cache["len"] = seq
@@ -329,7 +359,7 @@ def cache_like(cache: dict, x) -> dict:
             for name, t in cache.items()}
 
 
-def decode_step(cfg, params, batch, cache):
+def decode_step(cfg, params, batch, cache, rt: Runtime = Runtime()):
     """One-token step against a filled KV cache: tokens (B, 1), or (B, K, 1)
     for audio.  Writes the new k and v into ``cache`` in place (no copy of
     the whole cache per step) and returns (logits, cache)."""
@@ -340,7 +370,7 @@ def decode_step(cfg, params, batch, cache):
     x = _embed(cfg, params, batch["tokens"])          # (B, 1, d)
     for layer, p in enumerate(params["layers"]):
         x = block_decode(cfg, p, x, cache["k"][layer], cache["v"][layer],
-                          cur)
+                         cur, rt)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     cache["len"] = cur + 1
     return _logits(cfg, params, x)[:, 0], cache

@@ -123,8 +123,9 @@ def cache_specs(cfg) -> dict:
             "len": ()}
 
 
-def prefill(cfg, params, batch, max_len: int):
-    """Run the prompt, fill the caches, return (last-token logits, cache)."""
+def prefill(cfg, params, batch, max_len: int, rt=None):
+    """Run the prompt, fill the caches, return (last-token logits,
+    cache).  ``rt`` is unused, as in the reference."""
     tokens = batch["tokens"]
     bsz, seq = tokens.shape
     if seq > max_len:
@@ -150,9 +151,9 @@ def prefill(cfg, params, batch, max_len: int):
     return h[:, -1] @ params["head"], cache
 
 
-def decode_step(cfg, params, batch, cache):
-    """One-token step.  Updates ``cache`` in place and returns
-    (logits, cache)."""
+def decode_step(cfg, params, batch, cache, rt=None):
+    """One-token step (``rt`` unused, as in the reference).  Updates
+    ``cache`` in place and returns (logits, cache)."""
     cur = cache["len"]
     if cur >= cache["kv_k"].shape[2]:
         raise ValueError(f"cache full: {cur} positions of "

@@ -19,13 +19,15 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import math
 
 import torch
 
 from .specs import Rules, placements, resolve_spec
 
 __all__ = ["activation_sharding", "constrain", "current_mesh", "on_mesh",
-           "is_sharded", "replicate_like", "full", "distribute"]
+           "is_sharded", "replicate_like", "full", "distribute",
+           "on_local_shards"]
 
 _CTX: contextvars.ContextVar = contextvars.ContextVar("act_sharding",
                                                       default=None)
@@ -113,3 +115,57 @@ def constrain(x: torch.Tensor, logical: tuple[str, ...]) -> torch.Tensor:
     if tuple(x.placements) == target:
         return x
     return x.redistribute(mesh, target)
+
+
+def on_local_shards(fn, inputs: list, dims: list, out_dims: list):
+    """``fn`` over DTensor (or plain) ``inputs`` on each rank's local
+    shards -> its outputs as DTensors on the inputs' mesh.
+
+    ``dims[i]`` is (batch dim, head dim) of input i, each None where it has
+    none; ``out_dims`` the same of each output.  A mesh dimension along
+    which the first input is sharded on its batch (or head) dimension
+    shards every input on its batch (head) dimension, provided each such
+    dimension divides evenly by all the mesh dimensions that take it; every
+    other mesh dimension is replicated.  Heads split evenly alike keep a
+    grouped-query mapping local: query head h of a shard reads kv head
+    h // G of the same shard.  Where the kv heads cannot split as the
+    query heads do (8 query heads to 1 kv head on 2 ranks), the heads are
+    replicated, never paired across shards.  Plain inputs count as
+    replicated.  Gradients flow through (``to_local``/``from_local``): a
+    mesh dimension that splits neither batch nor heads runs ``fn`` alike
+    on each of its ranks."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    lead = next(t for t in inputs if is_sharded(t))
+    mesh = lead.device_mesh
+    inputs = [t if is_sharded(t) else replicate_like(t, lead)
+              for t in inputs]
+    first_batch, first_head = dims[0]
+    kinds = []
+    for placement in inputs[0].placements:
+        if placement.is_shard(first_batch):
+            kinds.append(0)
+        elif first_head is not None and placement.is_shard(first_head):
+            kinds.append(1)
+        else:
+            kinds.append(None)
+    for kind in (0, 1):
+        n = math.prod(mesh.size(j) for j, k in enumerate(kinds) if k == kind)
+        if any(d[kind] is not None and t.shape[d[kind]] % n
+               for t, d in zip(inputs, dims)):
+            kinds = [None if k == kind else k for k in kinds]
+
+    def layout(d):
+        return tuple(Shard(d[k]) if k is not None and d[k] is not None
+                     else Replicate() for k in kinds)
+
+    local = []
+    for t, d in zip(inputs, dims):
+        if tuple(t.placements) != layout(d):
+            t = t.redistribute(mesh, layout(d))
+        local.append(t.to_local().contiguous())
+    outs = fn(*local)
+    single = not isinstance(outs, tuple)
+    wrapped = tuple(DTensor.from_local(o, mesh, layout(d), run_check=False)
+                    for o, d in zip((outs,) if single else outs, out_dims))
+    return wrapped[0] if single else wrapped

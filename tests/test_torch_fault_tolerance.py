@@ -17,9 +17,13 @@ within three attempts) and race; here the kill waits for the first
 checkpoint when no item has finished by call 40, and the job engine has
 the attempts that the faults of any order need, while every case still
 checks that the rows persisted plus the rows probed on resume are the
-clean run's misses.  ``TestCheckpointResumeInline`` runs the same three
-cases with the scheduler inline (``max_workers=0``), where the order, and
-so the result, is the same every run.
+clean run's misses, and that no persisted row is probed again (the keys
+each cache stores from a probe).  On threads two items may probe one row
+at once (the cache runs probes outside its lock); the cache counts the
+later one as the hit it is in an inline run, so ``misses`` is the same
+in any order.  ``TestCheckpointResumeInline`` runs the same three cases
+with the scheduler inline (``max_workers=0``), where the order, and so
+the result, is the same every run.
 """
 import dataclasses
 import functools
@@ -307,6 +311,26 @@ def kill_past_first_checkpoint(monkeypatch, store, holder, horizon=40):
     monkeypatch.setattr(store, "put_checkpoint", put_checkpoint)
 
 
+def record_probed_rows(monkeypatch) -> list:
+    """The keys of the rows every ``SampleCache`` made from now on stores
+    from a probe (rows preloaded from a checkpoint are not among them)."""
+    probed = []
+
+    class Recording(dict):
+        def __setitem__(self, key, value):
+            probed.append(tuple(key))
+            super().__setitem__(key, value)
+
+    init = SampleCache.__init__
+
+    def recording_init(self):
+        init(self)
+        self._store = Recording()
+
+    monkeypatch.setattr(SampleCache, "__init__", recording_init)
+    return probed
+
+
 class TestCheckpointResume:
     def test_interrupt_then_resume_zero_recompute(self, tmp_path,
                                                   monkeypatch):
@@ -336,13 +360,29 @@ class TestCheckpointResume:
         entries, families = ckpt
         assert entries and families
 
+        probed = record_probed_rows(monkeypatch)
         resumed, t = discover(make_request(h100_runner, policy),
                               store=store)
+        persisted = {tuple(k) for k in entries}
+        again = persisted & set(probed)
+        numbers = (f"{len(entries)} persisted entries, {len(families)} "
+                   f"families; resume meta {t.meta.get('resume')}; cache on "
+                   f"resume {t.meta['cache']}, {len(set(probed))} distinct "
+                   f"rows probed, {len(again)} of them persisted; clean "
+                   f"misses {clean_misses} (cache {clean_t.meta['cache']})")
         assert t.meta["resume"] == {"rows": len(entries),
-                                    "families_done": len(families)}
-        assert t.meta["cache"]["misses"] + len(entries) == clean_misses
-        assert topology_equivalent(clean_topo, resumed, rel_tol=1e-6)
-        assert not store.has_checkpoint(key)
+                                    "families_done": len(families)}, numbers
+        # no persisted row is probed again, and the persisted rows and the
+        # rows probed on resume are the clean run's, counted distinct and
+        # as misses (a row two threads probe at once is one miss)
+        assert not again, numbers
+        assert len(set(probed)) + len(entries) \
+            == clean_t.meta["cache"]["entries"], numbers
+        assert t.meta["cache"]["misses"] + len(entries) == clean_misses, \
+            numbers
+        assert topology_equivalent(clean_topo, resumed, rel_tol=1e-6), \
+            numbers
+        assert not store.has_checkpoint(key), numbers
         # the finished run persisted: a third call is a pure store hit
         _, t3 = discover(make_request(h100_runner, policy), store=store)
         assert "cache" not in t3.meta

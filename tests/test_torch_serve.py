@@ -164,7 +164,9 @@ def _unported_calls(root=None):
     tokens = {"tokens": torch.zeros(1, 4, dtype=torch.long)}
     argv = ["--arch", "qwen3-14b-smoke", "--device", "cpu"]
     return {
-        "moe-ep": (lambda: Runtime(moe_impl="ep"), NotImplementedError,
+        # moe_impl="ep" is ported (models/moe_ep.py); an unknown moe
+        # implementation is refused naming both modules
+        "moe-ep": (lambda: Runtime(moe_impl="tp"), ValueError,
                    "moe_ep.py"),
         # a 2x2 mesh needs 4 ranks (torchrun); this process is one
         "mesh": (lambda: launch_serve.main(argv + ["--mesh", "2x2"]),

@@ -322,5 +322,11 @@ def test_constrain_passes_plain_tensors_through():
 
 
 def test_moe_ep_still_refused_naming_its_module():
-    with pytest.raises(NotImplementedError, match="moe_ep.py"):
-        Runtime(moe_impl="ep")
+    """``moe_impl="ep"`` is accepted since ``models/moe_ep.py`` is ported:
+    the moe FFN takes that module's ``moe_ffn_ep`` under a mesh and the
+    sorted dispatch with none (``tests/test_torch_moe_ep.py`` runs it)."""
+    from repro_torch.models import transformer
+
+    assert Runtime(moe_impl="ep").moe_impl == "ep"
+    assert transformer.moe_ffn_ep.__module__ == "repro_torch.models.moe_ep"
+    assert current_mesh() is None
